@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``cranesched_tpu_torch``) on one NVIDIA
-GPU and hold its kernel against its plain PyTorch version.
+GPU and hold its kernels against their plain PyTorch versions.
 
 Run from the root of a checkout, with no arguments:
 
@@ -9,19 +9,41 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero and prints no result):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: every CUDA kernel of the port, from the checkout's sources;
+2. build: every CUDA kernel of the port, from the checkout's sources,
+   one ``nvcc`` per source, all started together;
 3. kernel vs plain at full width (N = 10,000 nodes, R = 3, 100,000
    jobs): the greedy-placement kernel through ``solve_greedy_gpu_auto``
    on the card against the plain version on the same inputs, bitwise,
    for 4 disjoint classes (streamed, S = 4), overlapping classes
    (serial), and small edge cases; kernel and plain times;
-4. the main path: ``JobScheduler(meta, SchedulerConfig(backfill=False))``
-   + ``SimCluster`` at 100,000 pending jobs x 10,000 nodes, two cycles
-   with completions and a top-up submission between them, once on four
-   disjoint partitions and once with an overlapping partition; the
-   kernel's launch count, the first cycle's placements against the plain
-   version, and the ledger invariants are checked after every cycle;
-5. one JSON line describing every kernel, then the card line, then the
+4. the attribution kernels (``tools/kattr.py``'s variants) at J =
+   100,000, N = 10,000, R = 3, BJ = 256: each variant against its plain
+   version on the card, bitwise, and with no feasible node at small
+   size; then the attribution tool's path (``kattr.attribute``) with the
+   launch counts zeroed before and read after (one warm-up and
+   ``kattr.REPS`` timed launches per variant): each variant's median
+   CUDA-event time, its time per job and its bound, beside the real
+   kernel on the same data;
+5. the immediate-fit path: ``JobScheduler(meta,
+   SchedulerConfig(backfill=False))`` + ``SimCluster`` at 100,000
+   pending jobs x 10,000 nodes, two cycles with completions and a top-up
+   submission between them, once on four disjoint partitions and once
+   with an overlapping partition; the kernel's launch count and the
+   ledger invariants are checked after every cycle, and each layout's
+   first cycle against the plain version on the batch the scheduler
+   fed the kernel;
+6. the default path: ``JobScheduler(meta, SchedulerConfig())`` at the
+   same size on four disjoint partitions, two split backfill cycles, the
+   second contended: its top-up adds high-QoS gangs of 8 x 32 CPUs on
+   one partition, more than it holds now, so the head reserves future
+   starts.  The greedy kernel launches once per cycle (the tail); each
+   cycle's head (1,024 jobs on the [10,000, 64, 3] time map) equals the
+   port's time-axis solve on the CPU from the recorded inputs; the
+   second cycle backfills and its future starts pend ``Priority`` or
+   ``Resource``; the first cycle's tail equals the kernel's plain
+   version on the recorded inputs; the ledger invariants hold after
+   every cycle;
+7. one JSON line describing every kernel, then the card line, then the
    result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.  The kernel build goes to
@@ -31,7 +53,6 @@ It imports nothing of the JAX package.  The kernel build goes to
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -40,6 +61,9 @@ import numpy as np
 N_NODES = 10_000
 N_JOBS = 100_000
 TOPUP_JOBS = 5_000
+# the contended backfill cycle's high-QoS gangs (8 nodes x 32 CPUs, 10
+# min) on partition p0: 750 at 10,000 nodes, ~80% of p0's CPUs
+BIG_GANGS = N_NODES * 3 // 40
 # H100 SXM int32 rate: NVIDIA's data sheet gives 67 TFLOP/s float32,
 # counting an FMA as two operations on 128 float32 lanes per SM; an SM
 # has 64 int32 lanes (Hopper architecture white paper), so int32 runs at
@@ -52,14 +76,6 @@ DEVICE = "cuda"
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0].strip()
 
 
 def cluster_arrays(rng, n):
@@ -224,10 +240,58 @@ def phase_kernels():
     return res
 
 
-def check_ledger(sched, label):
+def phase_attribution():
+    """The kattr variants on the card against their plain versions, then
+    the attribution tool's path with the launch counts zeroed just
+    before and read just after."""
+    import torch
+
+    from cranesched_tpu_torch.tools import kattr
+
+    J, N, R, BJ = N_JOBS, N_NODES, 3, 256
+    ins = kattr.kernel_inputs(*kattr.make_data(J, N, R, BJ), device=DEVICE)
+    res = {}
+    for kind, err in kattr.check_variants(*ins, BJ).items():
+        plain = kattr.event_ms(
+            lambda: kattr.attr_variant_plain(kind, *ins, BJ))
+        res[kind] = {"max_abs_err": err, "plain_ms": float(np.median(plain))}
+        print(f"[kattr-vs-plain] {kind}: J={ins[0].shape[1]} "
+              f"N={ins[1].shape[0]} bitwise=True plain_card_ms="
+              f"{res[kind]['plain_ms']:.3f}", flush=True)
+    # no feasible node anywhere: select's second pass re-picks node 0
+    job, avail, cost = kattr.make_data(512, 1024, R, BJ)
+    avail[:] = 0
+    kattr.check_variants(*kattr.kernel_inputs(job, avail, cost,
+                                              device=DEVICE), BJ)
+    print("[kattr-vs-plain] all-infeasible J=512 N=1024: bitwise=True",
+          flush=True)
+
+    # the attribution tool's path
+    for kind in kattr.VARIANTS:
+        kattr.attr_variant.launches[kind] = 0
+    rows = kattr.attribute(*ins, BJ)
+    launches = dict(kattr.attr_variant.launches)
+    print("[kattr] attribution (J=%d, N=%d, R=%d, BJ=%d)\n%s" % (
+        ins[0].shape[1], ins[1].shape[0], R, BJ, kattr.format_rows(rows)),
+        flush=True)
+    for row in rows:
+        kind = row["variant"]
+        print(f"[kattr] {kind}: runs={[round(t, 3) for t in row['runs']]}",
+              flush=True)
+        if kind in res:
+            check(launches[kind] == kattr.REPS + 1,
+                  f"kattr {kind}: {launches[kind]} launches, want "
+                  f"{kattr.REPS + 1}")
+            res[kind].update(row, launches=launches[kind])
+        else:
+            res[kind] = row
+    return res
+
+
+def check_ledger(sched, label, resident=True):
     """avail >= 0; avail + running allocations == total; running jobs
-    inside their partition; the device-resident state equals the host
-    ledger."""
+    inside their partition; with ``resident``, the device-resident state
+    equals the host ledger."""
     meta = sched.meta
     ids = sorted(meta.nodes)
     avail = np.stack([meta.nodes[i].avail for i in ids]).astype(np.int64)
@@ -242,30 +306,28 @@ def check_ledger(sched, label):
               f"{label}: job {job.job_id} outside its partition")
     check((avail + used == total).all(),
           f"{label}: avail + allocations != total")
+    if not resident:
+        return
     state = sched._resident._state
     check(state is not None, f"{label}: no resident state")
     check(np.array_equal(state.avail.cpu().numpy(), avail),
           f"{label}: device-resident avail differs from the host ledger")
 
 
-def phase_cycle(overlap: bool):
-    """The main path at the north-star size; returns per-cycle stats."""
-    import torch
-
-    from cranesched_tpu_torch import convert
+def build_cell(rng, overlap: bool, config):
+    """``N_NODES`` nodes (cpu 32-128, mem 64-512 GiB) in partitions
+    ``p0..p3`` (plus ``all`` over every node with ``overlap``), a
+    ``JobScheduler`` with ``config`` on the card and a ``SimCluster``;
+    returns ``(sched, sim, submit)`` with ``submit(k, now)`` adding k
+    jobs as bench.py draws them."""
     from cranesched_tpu_torch.craned.sim import SimCluster
     from cranesched_tpu_torch.ctld import (
         JobScheduler,
         JobSpec,
         MetaContainer,
         ResourceSpec,
-        SchedulerConfig,
     )
-    from cranesched_tpu_torch.models import gpu_solver as g
 
-    label = "overlapping" if overlap else "disjoint"
-    rng = np.random.default_rng(1)
-    t0 = time.perf_counter()
     meta = MetaContainer()
     for i in range(N_NODES):
         parts = (f"p{i % 4}",) + (("all",) if overlap else ())
@@ -274,8 +336,7 @@ def phase_cycle(overlap: bool):
             mem_bytes=int(rng.integers(64, 513)) << 30, is_capacity=True),
             partitions=parts)
         meta.craned_up(i)
-    sched = JobScheduler(meta, SchedulerConfig(backfill=False),
-                         device=DEVICE)
+    sched = JobScheduler(meta, config, device=DEVICE)
     sim = SimCluster(sched)
     sim.wire(sched)
 
@@ -293,6 +354,24 @@ def phase_cycle(overlap: bool):
                 sim_runtime=float(rng.integers(30, 1800))), now=now) > 0,
                 "submit rejected")
 
+    return sched, sim, submit
+
+
+def phase_cycle(overlap: bool):
+    """The immediate-fit path at the north-star size; returns per-cycle
+    stats.  The first cycle is held against the plain version (~1 min of
+    CPU)."""
+    import torch
+
+    from cranesched_tpu_torch import convert
+    from cranesched_tpu_torch.ctld import SchedulerConfig
+    from cranesched_tpu_torch.models import gpu_solver as g
+
+    label = "overlapping" if overlap else "disjoint"
+    rng = np.random.default_rng(1)
+    t0 = time.perf_counter()
+    sched, sim, submit = build_cell(rng, overlap,
+                                    SchedulerConfig(backfill=False))
     submit(N_JOBS, 0.0)
     print(f"[cycle:{label}] setup {time.perf_counter() - t0:.1f}s "
           f"({N_NODES} nodes, {len(sched.pending)} pending)", flush=True)
@@ -374,6 +453,187 @@ def phase_cycle(overlap: bool):
     return rows, launches
 
 
+def phase_backfill():
+    """The default configuration at the north-star size: two split
+    backfill cycles on four disjoint partitions, the second contended by
+    ``BIG_GANGS`` high-QoS gangs on p0; returns per-cycle stats and the
+    kernel's launch count."""
+    import torch
+
+    from cranesched_tpu_torch.ctld import (
+        JobSpec,
+        PendingReason,
+        ResourceSpec,
+        SchedulerConfig,
+    )
+    from cranesched_tpu_torch.models import gpu_solver as g
+    from cranesched_tpu_torch.models import solver_time as st
+    from cranesched_tpu_torch.models.solver import make_cluster_state
+
+    label = "backfill"
+    rng = np.random.default_rng(2)
+    t0 = time.perf_counter()
+    sched, sim, submit = build_cell(rng, False, SchedulerConfig())
+    check(sched.config.backfill, "the default config is not backfill")
+    submit(N_JOBS, 0.0)
+    print(f"[cycle:{label}] setup {time.perf_counter() - t0:.1f}s "
+          f"({N_NODES} nodes, {len(sched.pending)} pending)", flush=True)
+
+    # record each cycle's head inputs (built before the solve, so the
+    # recording stays outside its timed span), its head placements (read
+    # by the commit) and its future starts, and the first tail solve's
+    # inputs and outputs
+    record = {}
+    cur = {"cycle": 0}
+    timed_state, timed_batch = sched._timed_state, sched._timed_batch
+    commit, solve = sched._commit, sched._solve_gpu
+
+    def spy_state(*args):
+        state = timed_state(*args)
+        record[("state", cur["cycle"])] = st.TimedClusterState(*(
+            x.cpu().clone() for x in (state.time_avail, state.total,
+                                      state.alive, state.cost)))
+        return state
+
+    def spy_batch(batch):
+        tb = timed_batch(batch)
+        record[("batch", cur["cycle"])] = st.TimedJobBatch(*(
+            x.cpu() for x in (tb.req, tb.node_num, tb.time_limit,
+                              tb.part_mask, tb.valid)))
+        return tb
+
+    def spy_commit(ordered, placements, now, start_buckets=None):
+        if start_buckets is not None:
+            head = host(placements.placed, start_buckets, placements.nodes,
+                        placements.reason)
+            record[("head", cur["cycle"])] = head
+            record[("future", cur["cycle"])] = [
+                job.job_id for job, fut in zip(ordered, head[0]
+                                               & (head[1] > 0)) if fut]
+        return commit(ordered, placements, now, start_buckets)
+
+    def spy_solve(avail, total, alive, cost, batch, max_nodes,
+                  resident_ok=False):
+        check(not resident_ok, "the tail solve asked for the resident state")
+        first = "tail_in" not in record
+        if first:
+            record["tail_in"] = (
+                avail.cpu().clone(), total.copy(), alive.copy(),
+                cost.cpu().clone(), host(batch.req, batch.node_num,
+                                         batch.time_limit, batch.valid),
+                batch.job_class_np.copy(), batch.class_rows_np.copy(),
+                max_nodes)
+        out = solve(avail, total, alive, cost, batch, max_nodes,
+                    resident_ok=resident_ok)
+        if first:
+            record["tail_out"] = host(out[0].placed, out[0].nodes,
+                                      out[0].reason)
+        return out
+
+    sched._timed_state, sched._timed_batch = spy_state, spy_batch
+    sched._commit, sched._solve_gpu = spy_commit, spy_solve
+    big = JobSpec(res=ResourceSpec(cpu=32.0, mem_bytes=1 << 30),
+                  node_num=8, time_limit=600, partition="p0",
+                  qos_priority=1, sim_runtime=300.0)
+    rows = []
+    now = 100.0
+    # the main path's launch count: zeroed just before, read just after
+    g.greedy_place.launches = 0
+    for cycle in range(2):
+        cur["cycle"] = cycle
+        if cycle:
+            now += 900.0
+            done = sim.advance_to(now)
+            submit(TOPUP_JOBS, now)
+            for _ in range(BIG_GANGS):
+                check(sched.submit(big, now=now) > 0, "submit rejected")
+            print(f"[cycle:{label}] advance_to({now}): {done} completions,"
+                  f" +{TOPUP_JOBS} submitted, +{BIG_GANGS} high-QoS gangs "
+                  "of 8 x 32 CPUs on p0", flush=True)
+        before = g.greedy_place.launches
+        t1 = time.perf_counter()
+        started = sched.schedule_cycle(now=now)
+        wall = time.perf_counter() - t1
+        last = dict(sched.stats["last_cycle"])
+        check(g.greedy_place.launches == before + 1,
+              f"{label} cycle {cycle}: kernel launched "
+              f"{g.greedy_place.launches - before} times (want once, for "
+              "the tail)")
+        check(last["solver"] == "backfill-split",
+              f"{label} cycle {cycle}: solver {last['solver']}")
+        check(len(started) > 0, f"{label} cycle {cycle}: placed nothing")
+        check_ledger(sched, f"{label} cycle {cycle}", resident=False)
+        future = record[("future", cycle)]
+        check(last["backfilled"] == len(future),
+              f"{label} cycle {cycle}: backfilled {last['backfilled']} "
+              f"!= {len(future)} future starts in the head")
+        reasons = {}
+        for jid in future:
+            r = sched.pending[jid].pending_reason
+            reasons[r.value] = reasons.get(r.value, 0) + 1
+        check(set(reasons) <= {PendingReason.PRIORITY.value,
+                               PendingReason.RESOURCE.value},
+              f"{label} cycle {cycle}: future-start reasons {reasons}")
+        if cycle:
+            check(len(future) > 0,
+                  f"{label}: the contended cycle reserved no future start")
+        last.update(cycle=cycle, placed=len(started), wall_s=wall,
+                    future_reasons=reasons)
+        rows.append(last)
+        print(f"[cycle:{label}] cycle {cycle}: placed {len(started)} "
+              f"wall {wall:.3f}s head {last['solve_head_ms']:.1f}ms tail "
+              f"{last['solve_tail_ms']:.1f}ms backfilled "
+              f"{last['backfilled']} future-start reasons {reasons} "
+              f"stats {json.dumps(last)}", flush=True)
+    launches = g.greedy_place.launches
+    check(launches == len(rows),
+          f"{label}: {launches} launches for {len(rows)} cycles")
+
+    # each cycle's head against the time-axis solve on the CPU
+    for cycle in range(2):
+        state = record[("state", cycle)]
+        batch = record[("batch", cycle)]
+        check(tuple(state.time_avail.shape) == (N_NODES, 64, 3),
+              f"{label}: time map {tuple(state.time_avail.shape)}")
+        want = record[("head", cycle)]
+        t2 = time.perf_counter()
+        p, _ = st.solve_backfill(state, batch,
+                                 edges=sched._grid.edges_tensor("cpu"),
+                                 max_nodes=want[2].shape[1])
+        for what, a, b in zip(("placed", "start bucket", "nodes", "reason"),
+                              want, host(p.placed, p.start_bucket, p.nodes,
+                                         p.reason)):
+            check(a.shape == b.shape and np.array_equal(a.astype(b.dtype), b),
+                  f"{label}: cycle {cycle} head {what} differs from the CPU "
+                  "solve")
+        print(f"[cycle:{label}] cycle {cycle} head == CPU time-axis solve "
+              f"(bitwise, {len(want[0])} jobs, K={want[2].shape[1]}, "
+              f"{int(want[0].sum())} placed, "
+              f"{int((want[0] & (want[1] > 0)).sum())} future starts, "
+              f"latest bucket {int(want[1][want[0]].max(initial=0))}, cpu "
+              f"{time.perf_counter() - t2:.1f}s)", flush=True)
+
+    # the first cycle's tail against the kernel's plain version
+    (avail, total, alive, cost, (req, nn, tl, valid), jc, rows_np,
+     max_nodes) = record["tail_in"]
+    tstate = make_cluster_state(avail, total, alive, cost, device="cpu")
+    t3 = time.perf_counter()
+    plan = g.plan_streams(jc, rows_np, known_disjoint=True)
+    p, _ = g.solve_greedy_gpu_auto(
+        tstate, torch.from_numpy(req), torch.from_numpy(nn),
+        torch.from_numpy(tl), torch.from_numpy(valid),
+        torch.from_numpy(jc), torch.from_numpy(rows_np),
+        max_nodes=max_nodes, plan=plan)
+    for what, a, b in zip(("placed", "nodes", "reason"), record["tail_out"],
+                          host(p.placed, p.nodes, p.reason)):
+        check(np.array_equal(a, b),
+              f"{label}: first tail {what} differs from plain")
+    print(f"[cycle:{label}] first tail == plain version (bitwise, "
+          f"{int(valid.sum())} jobs, plain {time.perf_counter() - t3:.1f}s)",
+          flush=True)
+    return rows, launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -382,11 +642,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     from cranesched_tpu_torch.kernels import build
-    from cranesched_tpu_torch.models import gpu_solver as g
+    from cranesched_tpu_torch.tools import kattr
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
-    card = card_line()
+    card = kattr.card_line()
     print(f"[device] {kind} | nvidia-smi: {card} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -406,11 +666,23 @@ def main() -> int:
     kres = phase_kernels()
     print(f"[kernel-vs-plain] {time.perf_counter() - t0:.1f}s", flush=True)
 
-    # 4. the main path, on disjoint and on overlapping partitions
+    # 4. the attribution kernels and the attribution tool's path
+    t0 = time.perf_counter()
+    ares = phase_attribution()
+    print(f"[kattr] {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 5. the immediate-fit path, on disjoint and on overlapping partitions
+    t0 = time.perf_counter()
     cycles_d, launches_d = phase_cycle(overlap=False)
     cycles_o, launches_o = phase_cycle(overlap=True)
-    cycles = cycles_d + cycles_o
-    launches = launches_d + launches_o
+    print(f"[cycle] immediate {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 6. the default path: split backfill cycles
+    t0 = time.perf_counter()
+    cycles_b, launches_b = phase_backfill()
+    print(f"[cycle] backfill {time.perf_counter() - t0:.1f}s", flush=True)
+    cycles = cycles_d + cycles_o + cycles_b
+    launches = launches_d + launches_o + launches_b
 
     st, se = kres["stream"], kres["serial"]
     kernels = [{
@@ -421,6 +693,8 @@ def main() -> int:
         "jax_function": "cranesched_tpu.models.pallas_solver."
                         "solve_greedy_pallas_auto",
         "launches": launches,
+        "launches_by_path": {"immediate": launches_d + launches_o,
+                             "backfill_tail": launches_b},
         "match": "bitwise",
         "max_abs_err": max(st["max_abs_err"], se["max_abs_err"]),
         "ms": st["ms"],
@@ -436,7 +710,31 @@ def main() -> int:
         "shapes": {"N": N_NODES, "R": 3, "J": st["J"], "K": st["K"],
                    "S": st["streams"], "C": st["C"],
                    "serial_C": se["C"]},
+        "attribution_full_ms": ares["full"]["ms"],
+        "attribution_full_us_per_job": ares["full"]["us_per_job"],
     }]
+    for variant in ("floor", "bcast", "onemin", "select"):
+        a = ares[variant]
+        kernels.append({
+            "name": f"kattr_{variant}",
+            "route": "cuda",
+            "source": "cranesched_tpu_torch/csrc/kattr_variants.cu",
+            "replaces": "tools/kattr.py:35",
+            "path": "attribution tool (cranesched_tpu_torch/tools/kattr.py)",
+            "launches": a["launches"],
+            "match": "bitwise",
+            "max_abs_err": a["max_abs_err"],
+            "ms": a["ms"],
+            "us_per_job": a["us_per_job"],
+            "plain_ms": a["plain_ms"],
+            "plain_device": "cuda",
+            "bound_ms": a["bound_ms"],
+            "bound_by": a["bound_by"],
+            "library_ms": None,
+            "shapes": {"J": N_JOBS, "N": N_NODES,
+                       "N_pad": -(-N_NODES // 1024) * 1024, "R": 3,
+                       "BJ": 256},
+        })
     print(json.dumps({"cycles": cycles}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"card: {card}", flush=True)

@@ -2,10 +2,14 @@
 
 The JAX package stays in the repository as the reference; this package
 sits beside it, imports nothing of it (nor JAX), and is held against it
-bit for bit.  Slice 1 carries the immediate-fit scheduling cycle:
-priority sort, factored job batch, the greedy placement on the
-device-resident cluster state (a hand-written CUDA kernel,
-``csrc/greedy_place.cu``), and the host commit.
+bit for bit.  It carries the scheduling cycle: priority sort, factored
+job batch, the greedy placement on the device-resident cluster state (a
+hand-written CUDA kernel, ``csrc/greedy_place.cu``), the backfill
+cycle of the default configuration (the time-axis solve of
+``models/solver_time.py`` for the head, the greedy kernel for the
+tail), and the host commit.  ``tools/kattr.py`` attributes the greedy
+kernel's time per job to its stages with stripped CUDA variants
+(``csrc/kattr_variants.cu``).
 
 Entry points run on ``torch.device("cuda")`` unless the caller passes
 ``device="cpu"``; without a CUDA device they raise.

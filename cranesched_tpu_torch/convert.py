@@ -22,6 +22,12 @@ from cranesched_tpu_torch.models.solver import (
     FactoredJobBatch,
     JobBatch,
     make_cluster_state,
+    normalize_cost_ledger,
+)
+from cranesched_tpu_torch.models.solver_time import (
+    TimedClusterState,
+    TimedJobBatch,
+    TimeGrid,
 )
 
 
@@ -61,6 +67,34 @@ def factored_job_batch(req, node_num, time_limit, valid, job_class,
         job_class=_t(job_class_np, torch.int32, dev),
         class_masks=_t(class_rows_np, torch.bool, dev),
         job_class_np=job_class_np, class_rows_np=class_rows_np)
+
+
+def timed_cluster_state(time_avail, total, alive, cost,
+                        device=None) -> TimedClusterState:
+    """TimedClusterState from the JAX one's fields (cost as the int32
+    ledger, or a float seed that is rounded into it)."""
+    dev = resolve_device(device)
+    n = np.shape(time_avail)[0]
+    return TimedClusterState(
+        time_avail=_t(time_avail, torch.int32, dev),
+        total=_t(total, torch.int32, dev),
+        alive=_t(alive, torch.bool, dev),
+        cost=normalize_cost_ledger(np.asarray(cost), n, dev))
+
+
+def timed_job_batch(req, node_num, time_limit, part_mask, valid,
+                    device=None) -> TimedJobBatch:
+    dev = resolve_device(device)
+    return TimedJobBatch(req=_t(req, torch.int32, dev),
+                         node_num=_t(node_num, torch.int32, dev),
+                         time_limit=_t(time_limit, torch.int32, dev),
+                         part_mask=_t(part_mask, torch.bool, dev),
+                         valid=_t(valid, torch.bool, dev))
+
+
+def time_grid(edges, resolution: float) -> TimeGrid:
+    """The port's TimeGrid with the JAX grid's edges."""
+    return TimeGrid.from_edges(edges, resolution)
 
 
 def pending_priority_attrs(age, qos_prio, part_prio, node_num, cpus, mem,

@@ -24,7 +24,9 @@
 // lowest id, only node_num passes per job (not K), and no passes at all
 // for jobs that cannot be admitted (invalid, or node_num outside
 // [1, K]).  Staging the state in shared memory, thread-block clusters
-// and more blocks per stream are left for later work.
+// and more blocks per stream are left for later work.  The per-job
+// stages (staging, node walk, block minimum) live in place_common.cuh,
+// shared with the attribution variants in kattr_variants.cu.
 //
 // Arithmetic that must match the reference bit for bit: the cost
 // increment uses the round-to-nearest intrinsics in the reference's
@@ -35,42 +37,18 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "place_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kMaxFields = 64;           // R + 4 job scalars
+using place::kCostInfBiased;
+using place::kInfKey;
+using place::kMaxFields;
+using place::kThreads;
+
 constexpr int kReasonNone = 0;
 constexpr int kReasonResource = 1;
 constexpr int kReasonConstraint = 2;
-constexpr unsigned kCostInfBiased = 0xffffffffu;   // biased COST_INF
-constexpr unsigned long long kInfKey = ~0ull;
-
-__device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
-    v = o < v ? o : v;
-  }
-  return v;
-}
-
-// Block-wide minimum; every thread gets the result.  s_red holds one
-// slot per warp plus the broadcast slot.
-__device__ __forceinline__ unsigned long long block_min(
-    unsigned long long v, unsigned long long* s_red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  v = warp_min(v);
-  if (lane == 0) s_red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int nwarps = blockDim.x >> 5;
-    v = lane < nwarps ? s_red[lane] : kInfKey;
-    v = warp_min(v);
-    if (lane == 0) s_red[32] = v;
-  }
-  __syncthreads();
-  return s_red[32];
-}
 
 // jobs:      int32[S, L, F], F = R + 4: req[R], node_num, time_limit,
 //            valid, class (already clipped to [0, C))
@@ -93,9 +71,7 @@ __global__ void __launch_bounds__(kThreads) greedy_place_kernel(
   const int tid = threadIdx.x;
 
   for (int j = 0; j < L; ++j) {
-    const int32_t* row = jobs + ((size_t)s * L + j) * F;
-    if (tid < F) s_job[tid] = row[tid];
-    __syncthreads();
+    place::stage_job(jobs + ((size_t)s * L + j) * F, 1, F, s_job);
     const int nn = s_job[R];
     const int tl = s_job[R + 1];
     const bool valid = s_job[R + 2] != 0;
@@ -112,17 +88,11 @@ __global__ void __launch_bounds__(kThreads) greedy_place_kernel(
       for (int k = 0; k < nn; ++k) {
         unsigned long long best = kInfKey;
         for (int n = tid; n < N; n += blockDim.x) {
-          if (!erow[n]) continue;
-          const int32_t* a = avail + (size_t)n * R;
-          bool fit = true;
-          for (int r = 0; r < R; ++r) fit &= a[r] >= s_job[r];
-          if (!fit) continue;
-          const unsigned long long key =
-              ((unsigned long long)((unsigned)cost[n] ^ 0x80000000u) << 32) |
-              (unsigned)n;
+          if (!erow[n] || !place::node_fits(avail, n, R, s_job)) continue;
+          const unsigned long long key = place::node_key(cost[n], n);
           if ((k == 0 || key > prev) && key < best) best = key;
         }
-        prev = block_min(best, s_red);
+        prev = place::block_min(best, s_red);
         if (k == tid) mine = prev;
       }
       ok = (unsigned)(prev >> 32) != kCostInfBiased;
@@ -130,7 +100,7 @@ __global__ void __launch_bounds__(kThreads) greedy_place_kernel(
 
     // winners: thread k owns the k-th cheapest node (distinct nodes)
     if (ok && tid < nn) {
-      const int n = (int)(unsigned)(mine & 0xffffffffu);
+      const int n = place::key_node(mine);
       int32_t* a = avail + (size_t)n * R;
       for (int r = 0; r < R; ++r)
         a[r] = (int32_t)((unsigned)a[r] - (unsigned)s_job[r]);
@@ -142,7 +112,7 @@ __global__ void __launch_bounds__(kThreads) greedy_place_kernel(
     const size_t out = (size_t)s * L + j;
     if (tid < K) {
       chosen[out * K + tid] =
-          (ok && tid < nn) ? (int32_t)(unsigned)(mine & 0xffffffffu) : -1;
+          (ok && tid < nn) ? place::key_node(mine) : -1;
     }
     if (tid == 0) {
       const bool never = !valid || nn <= 0 || nelig[cls] < nn;

@@ -1,18 +1,26 @@
 """JobScheduler: the submit → cycle → dispatch → status-change loop
-(port of ``cranesched_tpu/ctld/scheduler.py``, slice 1).
+(port of ``cranesched_tpu/ctld/scheduler.py``, slices 1 and 2).
 
-This slice carries the immediate-fit cycle (``backfill=False``):
+A cycle runs:
 
 1. the candidate scan over the PendingTable (or the per-job walk);
 2. the multifactor priority sort (``models/priority.py``);
 3. the factored job batch (``_MaskTable`` + ``_build_batch``);
-4. the greedy placement by the CUDA kernel on the device-resident
-   cluster state (``models/gpu_solver.py``, ``ctld/resident.py``);
+4. the solve, one of three shapes:
+   - ``backfill=False``: the greedy placement by the CUDA kernel on the
+     device-resident cluster state (``models/gpu_solver.py``,
+     ``ctld/resident.py``);
+   - ``backfill=True`` (the default) with at most ``backfill_max_jobs``
+     candidates: the time-axis solve over every candidate
+     (``models/solver_time.py``), whose future starts hold reservations;
+   - ``backfill=True`` with more candidates: that solve for the
+     ``backfill_max_jobs`` head, then the greedy kernel for the tail
+     against the head's min-over-horizon availability;
 5. the host commit against the authoritative ledger, and the dispatch.
 
 Semantics on this path are the JAX package's, bit for bit.  What the
-slice does not carry raises ``NotImplementedError`` naming its ROADMAP
-item instead of pretending: backfill, preemption, other solver
+port does not carry yet raises ``NotImplementedError`` naming its
+ROADMAP item instead of pretending: preemption, other solver
 backends, packed/exclusive jobs, reservations named by a job, licenses,
 arrays, dependencies, begin times, allocation-only jobs, submit hooks,
 accounting and topologies.  The WAL, HA, federation, job trace, flight
@@ -71,8 +79,16 @@ from cranesched_tpu_torch.models.solver import (
     REASON_CONSTRAINT,
     REASON_RESOURCE,
     FactoredJobBatch,
+    JobBatch,
     Placements,
     make_cluster_state,
+)
+from cranesched_tpu_torch.models.solver_time import (
+    TimedClusterState,
+    TimedJobBatch,
+    TimeGrid,
+    make_timed_state,
+    solve_backfill,
 )
 from cranesched_tpu_torch.ops.resources import DIM_CPU, DIM_MEM
 
@@ -98,11 +114,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 @dataclasses.dataclass(frozen=True)
 class SchedulerConfig:
-    """Scheduler knobs, with the JAX package's defaults.
-
-    ``backfill`` stays True by default as in the JAX package; this slice
-    runs only the immediate-fit cycle, so callers pass
-    ``backfill=False``."""
+    """Scheduler knobs, with the JAX package's defaults."""
 
     schedule_batch_size: int = 100_000
     pending_queue_max_size: int = 900_000
@@ -111,7 +123,19 @@ class SchedulerConfig:
     priority_weights: PriorityWeights = dataclasses.field(
         default_factory=PriorityWeights)
     max_requeue_count: int = 3
+    # time axis: duration-aware fit and conservative backfill on a grid
+    # of ``time_buckets`` buckets of ``time_resolution`` seconds; a
+    # ``time_horizon`` beyond resolution * buckets stretches the tail
+    # buckets geometrically to reach it (models/solver_time.TimeGrid)
     backfill: bool = True
+    time_resolution: float = 60.0
+    time_buckets: int = 64
+    time_horizon: float | None = None
+    # bounded backfill lookahead: a cycle with more candidates runs the
+    # time-axis solve for the top ``backfill_max_jobs`` only and places
+    # the tail with the greedy kernel against the head's
+    # min-over-horizon availability (strictly conservative)
+    backfill_max_jobs: int = 1024
     # "off" | "requeue" | "cancel"
     preempt_mode: str = "off"
     # the immediate-fit backend: the CUDA greedy-placement kernel
@@ -129,10 +153,6 @@ class SchedulerConfig:
     block_jobs: int = 256
 
     def __post_init__(self):
-        if self.backfill:
-            raise _not_ported(
-                "backfill (pass SchedulerConfig(backfill=False))",
-                "A7, slice 2")
         if self.preempt_mode != "off":
             raise _not_ported("preemption", "A8")
         if self.solver != "cuda":
@@ -332,6 +352,11 @@ class JobScheduler:
         self._resident = ResidentClusterState(
             meta, self.device,
             enabled=config.resident_state and config.incremental)
+        # one time axis for every duration-aware solve: time limits stay
+        # in seconds and the solve derives windows from these edges
+        self._grid = TimeGrid(config.time_buckets, config.time_resolution,
+                              horizon=config.time_horizon)
+        self._grid_edges = self._grid.edges_tensor(self.device)
         self.stats = {
             "cycles": 0, "skipped_cycles": 0, "jobs_started_total": 0,
             "jobs_submitted_total": 0, "jobs_finished_total": 0,
@@ -736,11 +761,32 @@ class JobScheduler:
         trace["priority_ms"] = (t_batch - t_sort) * 1e3
         trace["batch_ms"] = (time.perf_counter() - t_batch) * 1e3
 
-        placements, solver_name = yield self._traced_solve(
-            lambda: self._solve_gpu(
-                avail, total, alive, cost0, jobs_batch, max_nodes,
-                resident_ok=True))
-        started = self._commit(ordered, placements, now)
+        if self.config.backfill:
+            if len(ordered) > max(1, self.config.backfill_max_jobs):
+                started = yield from self._split_backfill_phases(
+                    ordered, jobs_batch, avail, total, alive, cost0,
+                    max_nodes, now)
+                self._record_cycle_stats(t0, candidates, started,
+                                         time.perf_counter(),
+                                         "backfill-split")
+                if self._dispatch_ring:
+                    self._note_dispatch((yield self._dispatch_phase()))
+                return started
+            state = self._timed_state(now, avail, total, alive, cost0)
+            tbatch = self._timed_batch(jobs_batch.dense())
+            placements = yield self._traced_solve(
+                lambda: solve_backfill(state, tbatch,
+                                       edges=self._grid_edges,
+                                       max_nodes=max_nodes)[0])
+            started = self._commit(ordered, placements, now,
+                                   placements.start_bucket)
+            solver_name = "backfill"
+        else:
+            placements, solver_name = yield self._traced_solve(
+                lambda: self._solve_gpu(
+                    avail, total, alive, cost0, jobs_batch, max_nodes,
+                    resident_ok=True))
+            started = self._commit(ordered, placements, now)
         # double buffer: copy the rows this commit dirtied ahead of the
         # next cycle's resident patch
         self._resident.stage()
@@ -750,15 +796,75 @@ class JobScheduler:
             self._note_dispatch((yield self._dispatch_phase()))
         return started
 
+    def _split_backfill_phases(self, ordered, jobs_batch, avail, total,
+                               alive, cost0, max_nodes, now):
+        """Bounded backfill lookahead: the time-axis solve with full
+        reservation semantics covers the top ``backfill_max_jobs`` jobs;
+        the tail is placed by the greedy kernel against the MIN over the
+        horizon of the post-reservation time map, so no tail placement
+        can violate a head reservation.  Each part is committed after its
+        own solve."""
+        bf_max = max(1, self.config.backfill_max_jobs)
+        head, tail = ordered[:bf_max], ordered[bf_max:]
+        # dense rows for the head only; the tail stays factored for the
+        # kernel, with the head's rows invalid so nothing places twice
+        head_batch = self._timed_batch(jobs_batch.dense(bf_max))
+        rows = torch.arange(jobs_batch.num_jobs, device=self.device)
+        tail_batch = jobs_batch.with_valid(jobs_batch.valid
+                                           & (rows >= bf_max))
+        state = self._timed_state(now, avail, total, alive, cost0)
+        placements, tstate = yield self._traced_solve(
+            lambda: solve_backfill(state, head_batch,
+                                   edges=self._grid_edges,
+                                   max_nodes=max_nodes), part="head")
+        started = self._commit(head, placements, now,
+                               placements.start_bucket)
+
+        # pass 2: the tail against the tightest bucket of the horizon
+        self.meta.start_logging()   # a fresh event window for its commit
+
+        def tail_solve():
+            # the min stays on the device and is never adopted as, or
+            # patched into, the resident state
+            min_avail = tstate.time_avail.amin(dim=1)
+            return self._solve_gpu(min_avail, total, alive, tstate.cost,
+                                   tail_batch, max_nodes,
+                                   resident_ok=False)
+
+        out, _ = yield self._traced_solve(tail_solve, part="tail")
+        started += self._commit(tail, Placements(
+            placed=out.placed[bf_max:], nodes=out.nodes[bf_max:],
+            reason=out.reason[bf_max:]), now)
+        return started
+
+    def _timed_state(self, now, avail, total, alive, cost0
+                     ) -> TimedClusterState:
+        """The time map from the snapshot and the running jobs' release
+        rows (one per (job, node), straight from the run ledger)."""
+        T = self.config.time_buckets
+        run_nodes, run_req, run_end = self._ledger.timed_rows(
+            now, self.config.time_resolution, T, grid=self._grid)
+        return make_timed_state(avail, total, alive, run_nodes, run_req,
+                                run_end, T, cost0, device=self.device)
+
+    @staticmethod
+    def _timed_batch(batch: JobBatch) -> TimedJobBatch:
+        # time limits stay in seconds: the solve derives each window
+        # from the grid edges passed beside the batch
+        return TimedJobBatch(req=batch.req, node_num=batch.node_num,
+                             time_limit=batch.time_limit,
+                             part_mask=batch.part_mask, valid=batch.valid)
+
     def _solve_gpu(self, avail, total, alive, cost0, jobs_batch,
                    max_nodes, resident_ok=False):
         """The immediate-fit solve: greedy placement by the CUDA kernel
-        (models/gpu_solver.py), returning ``(placements, label)``.  Class-disjoint batches run the
-        S-stream decomposition, labeled ``cuda-stream`` with
-        ``num_streams`` recorded; overlapping classes run the serial
-        kernel, labeled ``cuda``.  The cluster state is updated in place
-        on the device; with ``resident_ok`` it is the cross-cycle
-        resident state (dirty-row patch) instead of a fresh upload."""
+        (models/gpu_solver.py), returning ``(placements, label)``.
+        Class-disjoint batches run the S-stream decomposition, labeled
+        ``cuda-stream`` with ``num_streams`` recorded; overlapping
+        classes run the serial kernel, labeled ``cuda``.  The cluster
+        state is updated in place on the device; with ``resident_ok`` it
+        is the cross-cycle resident state (dirty-row patch) instead of a
+        fresh upload of ``avail`` (an array or a device tensor)."""
         cfg = self.config
         use_resident = resident_ok and self._resident.enabled
         if use_resident:
@@ -792,10 +898,11 @@ class JobScheduler:
         self._cur_trace["num_streams"] = num_streams
         return placements, ("cuda-stream" if num_streams > 1 else "cuda")
 
-    def _traced_solve(self, fn):
+    def _traced_solve(self, fn, part: str | None = None):
         """Wrap a yielded solve closure: time it, settling the device
         work before the clock stops (otherwise the commit's read-back
-        would absorb the kernel time)."""
+        would absorb the kernel time).  A split cycle's solves also
+        record their own time as ``solve_<part>_ms``."""
         trace = self._cur_trace
 
         def run():
@@ -805,7 +912,10 @@ class JobScheduler:
             out = fn()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            trace["solve_ms"] += (time.perf_counter() - t0) * 1e3
+            ms = (time.perf_counter() - t0) * 1e3
+            trace["solve_ms"] += ms
+            if part is not None:
+                trace[f"solve_{part}_ms"] = ms
             return out
 
         return run
@@ -840,6 +950,13 @@ class JobScheduler:
             "h2d_bytes": res.last_h2d_bytes if mode else 0,
             "patch_overlap": bool(res.last_overlap) if mode else False,
         }
+        # backfill cycles: jobs holding a future start, and a split
+        # cycle's solve time by part
+        for key in ("backfilled", "solve_head_ms", "solve_tail_ms"):
+            if key in trace:
+                value = trace[key]
+                self.stats["last_cycle"][key] = (
+                    round(value, 3) if isinstance(value, float) else value)
         self.stats["last_cycle_walltime"] = time.time()
         # a zero-placement solve with nothing in flight arms the no-op
         # fingerprint
@@ -1095,24 +1212,37 @@ class JobScheduler:
     # commit
     # ------------------------------------------------------------------
 
-    def _commit(self, ordered: list[Job], placements: Placements,
-                now: float) -> list[int]:
+    def _commit(self, ordered: list[Job], placements, now: float,
+                start_buckets: torch.Tensor | None = None) -> list[int]:
         """Host authoritative commit: re-check against the live ledger
         and the cycle's reduce events; jobs whose nodes died mid-cycle
         stay pending for the next cycle.  The placements come back from
         the device in ONE copy; the ledger commit is one batched meta
         call over the whole placed set; dispatches are queued on the
-        ring and issued by the cycle's final phase."""
+        ring and issued by the cycle's final phase.
+
+        With the time axis, ``start_buckets`` marks future-start jobs:
+        they hold reservations inside the solve and do not dispatch.
+        Each reports ``Priority`` when its chosen nodes have room for it
+        now (after this commit's allocations) and ``Resource``
+        otherwise."""
         events = self.meta.stop_logging()
         dirty_nodes = {ev.node_id for ev in events}
 
-        host = torch.cat([placements.placed.to(torch.int32)[:, None],
-                          placements.reason[:, None],
-                          placements.nodes.to(torch.int32)],
-                         dim=1).cpu().numpy()
+        cols = [placements.placed.to(torch.int32)[:, None],
+                placements.reason[:, None]]
+        if start_buckets is not None:
+            cols.append(start_buckets.to(torch.int32)[:, None])
+        cols.append(placements.nodes.to(torch.int32))
+        host = torch.cat(cols, dim=1).cpu().numpy()
         placed = host[:, 0] != 0
         reasons = host[:, 1]
-        nodes_mat = host[:, 2:]
+        future = np.zeros(len(host), bool)
+        if start_buckets is not None:
+            future = placed & (host[:, 2] > 0)
+            self._cur_trace["backfilled"] = (
+                self._cur_trace.get("backfilled", 0) + int(future.sum()))
+        nodes_mat = host[:, len(cols) - 1:]
         valid_nodes = nodes_mat >= 0
         # one gather flags every placement row touching a node some
         # mid-cycle event dirtied
@@ -1129,6 +1259,7 @@ class JobScheduler:
         # rows the solver took on device but the host rejects: the
         # device state subtracted resources the ledger never allocated
         rejected_rows: list[int] = []
+        future_start: list[tuple[Job, list[int]]] = []
         for i, job in enumerate(ordered):
             if (job.job_id not in self.pending or job.held
                     or job.spec is not getattr(job, "_plan_spec",
@@ -1141,6 +1272,12 @@ class JobScheduler:
             if not placed[i]:
                 job.pending_reason = _REASON_MAP.get(
                     int(reasons[i]), PendingReason.RESOURCE)
+                continue
+            if future[i]:
+                # its reason reads the avail after this commit's batch
+                # malloc, below
+                future_start.append(
+                    (job, nodes_mat[i][valid_nodes[i]].tolist()))
                 continue
             if dirty_row is not None and dirty_row[i]:
                 job.pending_reason = PendingReason.RESOURCE
@@ -1171,6 +1308,12 @@ class JobScheduler:
             self.running[job.job_id] = job
             started_jobs.append(job)
             started.append(job.job_id)
+        for job, node_ids in future_start:
+            req = self._job_row(job)[0]
+            fits_now = bool(node_ids) and all(
+                (req <= self.meta.nodes[n].avail).all() for n in node_ids)
+            job.pending_reason = (PendingReason.PRIORITY if fits_now
+                                  else PendingReason.RESOURCE)
         if rejected_rows:
             bad = nodes_mat[rejected_rows]
             self._resident.mark_diverged(np.unique(bad[bad >= 0]))

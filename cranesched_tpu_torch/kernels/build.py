@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one ``.cu`` file under ``cranesched_tpu_torch/csrc/`` with
-a plain C interface, compiled by ``nvcc`` for Hopper (``sm_90a``) into a
-shared library and loaded with ``ctypes``.  The build happens at first
-use, into ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), keyed by a hash of the source and the flags, so a fresh
-checkout builds everything it runs and a rebuilt source never loads a
-stale library.  A missing ``nvcc`` raises: there is no fallback.
+a plain C interface (sharing code through the ``.cuh`` headers there),
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library and
+loaded with ``ctypes``.  The build happens at first use, into
+``build/kernels/`` at the root of the checkout (listed in
+``.gitignore``), keyed by a hash of the source, every header and the
+flags, so a fresh checkout builds everything it runs and a changed
+source or header never loads a stale library.  A missing ``nvcc`` raises: there is no fallback.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits
 for them; ``load(name)`` builds one kernel if needed and returns its
@@ -28,7 +29,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 # name -> source file under csrc/
-SOURCES = {"greedy_place": "greedy_place.cu"}
+SOURCES = {"greedy_place": "greedy_place.cu",
+           "kattr_variants": "kattr_variants.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,9 +51,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC_DIR / SOURCES[name]).read_bytes())
+    # every header, by name and content: a source includes any of them
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

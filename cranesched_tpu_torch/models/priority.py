@@ -104,6 +104,25 @@ def _norm_or_one(value, lo, hi):
                        / torch.clamp(hi - lo, min=1e-30), 1.0)
 
 
+def _fma32(x: torch.Tensor, y: float, z) -> torch.Tensor:
+    """float32 fused multiply-add ``x * y + z``, rounded once.
+
+    The product of two float32 values is exact in float64 and TwoSum
+    gives the float64 sum's exact error; rounding that sum to odd before
+    the cast to float32 makes the double rounding exact (53 >= 2*24 + 2
+    bits), on any device."""
+    p = x.double() * float(np.float32(y))
+    z = torch.as_tensor(z, dtype=torch.float32, device=x.device).double()
+    s = p + z
+    t = s - p
+    err = (p - (s - t)) + (z - t)
+    bits = s.view(torch.int64)
+    inexact = (err != 0) & torch.isfinite(s) & ((bits & 1) == 0)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    return torch.where(inexact, bits + step, bits).view(
+        torch.float64).to(torch.float32)
+
+
 def _segment_sum_in_order(values: torch.Tensor, segments: torch.Tensor,
                           num_segments: int) -> torch.Tensor:
     """float32 per-segment sums, each accumulated sequentially in element
@@ -196,21 +215,26 @@ def multifactor_priority(pending: PendingPriorityAttrs,
     size_f = (_norm(p_cpus, cpus_min, cpus_max)
               + _norm(p_nodes, nodes_min, nodes_max)
               + _norm(p_mem, mem_min, mem_max))
-    # the mean of the three terms is a multiply by the float32 reciprocal
-    # of 3: that is the reference's arithmetic as compiled (XLA rewrites
-    # a division by a constant into a multiply by its reciprocal), and
-    # it rounds differently from a true division
-    if weights.favor_small:
-        size_f = 1.0 - size_f * _THIRD
-    else:
-        size_f = size_f * _THIRD
     job_service = acc_service[pending.account.to(torch.int64)]
     fshare_f = torch.where(sv_max > sv_min,
                            1.0 - (job_service - sv_min)
                            / torch.clamp(sv_max - sv_min, min=1e-30), 0.0)
 
-    priority = (weights.age * age_f + weights.partition * part_f
-                + weights.job_size * size_f + weights.fair_share * fshare_f
+    # The size term as the reference compiles it on the CPU (its dumped
+    # optimized HLO and LLVM IR): the mean's division by 3 becomes a
+    # multiply by f32(1/3); with favor_small=False that constant folds
+    # with the weight into one f32 constant; and the code generator
+    # contracts each multiply whose result is added right away into a
+    # fused multiply-add.  The other weighted terms pass through a
+    # select before their add and stay a plain multiply.
+    head = weights.age * age_f + weights.partition * part_f
+    if weights.favor_small:
+        mean = _fma32(size_f, -_THIRD, 1.0)
+        head = _fma32(mean, weights.job_size, head)
+    else:
+        head = _fma32(size_f, float(np.float32(_THIRD)
+                                    * np.float32(weights.job_size)), head)
+    priority = (head + weights.fair_share * fshare_f
                 + weights.qos * qos_f)
     return torch.where(p_ok, priority, float("-inf"))
 

@@ -163,6 +163,22 @@ class FactoredJobBatch:
     def num_jobs(self) -> int:
         return self.req.shape[0]
 
+    def with_valid(self, valid: torch.Tensor) -> "FactoredJobBatch":
+        """The same batch with another validity mask (tables shared)."""
+        return dataclasses.replace(self, valid=valid)
+
+    def dense(self, stop: int | None = None) -> JobBatch:
+        """The dense JobBatch of rows ``[:stop]``, its ``part_mask``
+        gathered from the class table on the device for those rows only
+        (the whole batch's [J, N] would be 1 GB at 100k x 10k)."""
+        rows = slice(None, stop)
+        return JobBatch(
+            req=self.req[rows], node_num=self.node_num[rows],
+            time_limit=self.time_limit[rows],
+            part_mask=self.class_masks.index_select(
+                0, self.job_class[rows].long()),
+            valid=self.valid[rows])
+
 
 @dataclasses.dataclass
 class Placements:
@@ -180,14 +196,21 @@ class Placements:
 
 def make_cluster_state(avail, total, alive, cost=None,
                        device=None) -> ClusterState:
-    """Upload a cluster snapshot.  ``device`` defaults to the CUDA card
-    (raises without one); pass ``device="cpu"`` to stay on the CPU."""
+    """Upload a cluster snapshot (numpy arrays or tensors).  ``device``
+    defaults to the CUDA card (raises without one); pass ``device="cpu"``
+    to stay on the CPU."""
     dev = resolve_device(device)
+
     # copies: the state is updated in place and must never alias the
-    # caller's host arrays
-    avail = torch.tensor(np.asarray(avail, np.int32), device=dev)
-    total = torch.tensor(np.asarray(total, np.int32), device=dev)
-    alive = torch.tensor(np.asarray(alive, bool), device=dev)
+    # caller's arrays
+    def own(x, dtype):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=dtype, copy=True)
+        return torch.tensor(np.asarray(x), device=dev).to(dtype)
+
+    avail = own(avail, torch.int32)
+    total = own(total, torch.int32)
+    alive = own(alive, torch.bool)
     return ClusterState(avail=avail, total=total, alive=alive,
                         cost=normalize_cost_ledger(cost, avail.shape[0],
                                                    dev))
@@ -258,9 +281,11 @@ def apply_placement(avail, cost, cpu_total, req, time_limit, idx,
                     apply_mask) -> None:
     """Subtract ``req`` from rows ``idx`` where ``apply_mask`` and add
     the MinCpuTimeRatioFirst increment to their cost, in place.  Rows
-    with ``apply_mask`` False add zero."""
-    delta = torch.where(apply_mask[:, None], req[None, :], 0)
-    avail.index_add_(0, idx, -delta)
+    with ``apply_mask`` False add zero.  ``avail=None`` updates the cost
+    only (the time-axis solve writes its own ``[N, T, R]`` map)."""
+    if avail is not None:
+        delta = torch.where(apply_mask[:, None], req[None, :], 0)
+        avail.index_add_(0, idx, -delta)
     dcost = quantized_dcost(time_limit, req[DIM_CPU], cpu_total[idx])
     cost.index_add_(0, idx, torch.where(apply_mask, dcost, 0))
 

@@ -1,5 +1,5 @@
 """The port's entry points run on the card unless asked for the CPU, and
-refuse loudly what slice 1 does not carry.
+refuse loudly what the port does not carry yet.
 
 Here there is no CUDA device, so every entry point given no ``device``
 must raise; with ``device="cpu"`` it runs.  Out-of-slice configuration
@@ -58,13 +58,27 @@ def test_entry_points_raise_without_cuda():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(), "A7"),                          # backfill stays the default
+    (dict(preempt_mode="cancel"), "A8"),
     (dict(backfill=False, preempt_mode="requeue"), "A8"),
     (dict(backfill=False, solver="device"), "A8"),
 ])
 def test_unsupported_config_raises(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         SchedulerConfig(**kw)
+
+
+def test_default_config_runs_the_backfill_cycle():
+    """SchedulerConfig() with no overrides: the backfill defaults of the
+    JAX package, and a cycle on the CPU that places jobs."""
+    cfg = SchedulerConfig()
+    assert cfg.backfill and cfg.backfill_max_jobs == 1024
+    assert (cfg.time_resolution, cfg.time_buckets) == (60.0, 64)
+    assert cfg.time_horizon is None
+    sched = JobScheduler(_meta(), cfg, device="cpu")
+    for _ in range(6):
+        assert sched.submit(JobSpec(res=_RES, time_limit=600), now=0.0)
+    assert len(sched.schedule_cycle(now=1.0)) == 6
+    assert sched.stats["last_cycle"]["solver"] == "backfill"
 
 
 def test_config_keeps_the_reference_defaults():

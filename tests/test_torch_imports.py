@@ -82,6 +82,8 @@ def test_port_imports_without_jax_and_runs_a_cycle():
     mods = _port_modules()
     assert "cranesched_tpu_torch.ctld.scheduler" in mods
     assert "cranesched_tpu_torch.models.gpu_solver" in mods
+    assert "cranesched_tpu_torch.models.solver_time" in mods
+    assert "cranesched_tpu_torch.tools.kattr" in mods
     code = _CHILD.format(blocked=BLOCKED, mods=mods)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

@@ -4,7 +4,9 @@ The same numpy attributes go through JAX ``multifactor_priority`` /
 ``priority_order`` and the port's (on the CPU).  The priorities must
 match bit for bit (compared as int32 views) and the permutation must be
 identical — with and without ``extra_service``, with an empty running
-set, and with tied priorities.
+set, with tied priorities, and with a nonzero ``job_size`` weight either
+way of ``favor_small`` (the fused multiply-adds of the compiled
+reference).
 """
 
 import numpy as np
@@ -62,7 +64,8 @@ def _both(p, r, A, extra=None, weights=None):
     return np.asarray(jp), tp.numpy(), jo, to
 
 
-_CASES = ["plain", "extra_service", "empty_running", "ties", "large_job"]
+_CASES = ["plain", "extra_service", "empty_running", "ties", "large_job",
+          "small_job"]
 
 
 @pytest.mark.parametrize("case", _CASES)
@@ -77,16 +80,10 @@ def test_priority_bitwise_and_order(case):
         extra[::3] = 0.0
     if case == "large_job":
         weights = dict(job_size=500.0, favor_small=False)
+    if case == "small_job":
+        weights = dict(job_size=500.0)
     jp, tp, jo, to = _both(p, r, A, extra, weights)
     np.testing.assert_array_equal(jo, to)
-    if case == "large_job":
-        # a nonzero job_size weight: the compiled reference contracts
-        # the weighted sum into fused multiply-adds, which the port's
-        # eager float32 ops do not, so a few priorities differ by one
-        # unit in the last place (ROADMAP C.1); the order must not
-        ulp = jp.view(np.int32).astype(np.int64) - tp.view(np.int32)
-        assert np.abs(ulp).max() <= 1
-        return
     np.testing.assert_array_equal(jp.view(np.int32), tp.view(np.int32))
     if case == "ties":
         assert len(np.unique(tp[np.isfinite(tp)])) < J // 10
@@ -104,3 +101,17 @@ def test_service_sum_is_in_job_order():
                               jnp.asarray(seg.numpy()), num_segments=2)
     np.testing.assert_array_equal(out.numpy().view(np.int32),
                                   np.asarray(ref).view(np.int32))
+
+
+def test_fma32_rounds_once():
+    """A case where rounding the float64 sum to float32 would round
+    twice: x*y + z lies just below the midpoint between two float32
+    neighbours, and its float64 sum lands on that midpoint."""
+    x = torch.tensor([np.float32(2.0**-24 * (1 + 2.0**-15))])
+    y = float(np.float32(1 - 2.0**-15))
+    z = float(np.float32(1 + 2.0**-23))
+    twice = np.float32(np.float64(x[0]) * y + z)
+    assert twice == np.float32(1 + 2.0**-22)
+    got = tprio._fma32(x, y, z)
+    assert got.dtype == torch.float32
+    assert got[0].item() == np.float32(1 + 2.0**-23)
