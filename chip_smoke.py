@@ -15,11 +15,17 @@ Phases (any failure exits non-zero and prints no result):
    jobs): the greedy-placement kernel through ``solve_greedy_gpu_auto``
    on the card against the plain version on the same inputs, bitwise,
    for 4 disjoint classes (streamed, S = 4), overlapping classes
-   (serial), and small edge cases; kernel and plain times;
+   (serial), the owned state and the class bits in device memory
+   (forced by size: 20,000 nodes; 600 and 1,000 classes), gangs above
+   the kernel's 8 keys per thread (K = 32), unbalanced streams, streams
+   that own no alive node or no node, and small edge cases; kernel and
+   plain times, threads per block, shared-memory bytes and the path
+   taken;
 4. the attribution kernels (``tools/kattr.py``'s variants) at J =
    100,000, N = 10,000, R = 3, BJ = 256: each variant against its plain
-   version on the card, bitwise, and with no feasible node at small
-   size; then the attribution tool's path (``kattr.attribute``) with the
+   version on the card, bitwise, and with no feasible node and with
+   exactly one at small size; then the attribution tool's path
+   (``kattr.attribute``) with the
    launch counts zeroed before and read after (one warm-up and
    ``kattr.REPS`` timed launches per variant): each variant's median
    CUDA-event time, its time per job and its bound, beside the real
@@ -71,6 +77,8 @@ BIG_GANGS = N_NODES * 3 // 40
 INT32_OPS_PER_S = 67e12 / 4
 HBM_BYTES_PER_S = 3.35e12
 DEVICE = "cuda"
+# the kernels' design (place_common.cuh)
+DESIGN = "owned-smem-1barrier"
 
 
 def check(cond, msg: str) -> None:
@@ -102,10 +110,12 @@ def host(*ts):
 
 
 def kernel_vs_plain(name, total, alive, cost, jobs, job_class, masks,
-                    max_nodes, expect_streams, timed=False):
+                    max_nodes, expect_streams, timed=False, expect_path=None):
     """One solve through the entry point on the card and through the
     plain version on the CPU, from the same inputs; bitwise equal.
-    Returns the kernel-level measurements."""
+    ``expect_path`` ``(state, bits)`` checks where the launch plan put
+    the owned state and the class bits.  Returns the kernel-level
+    measurements; ``timed`` adds the kernel's time."""
     import torch
 
     from cranesched_tpu_torch.models import gpu_solver as g
@@ -122,14 +132,20 @@ def kernel_vs_plain(name, total, alive, cost, jobs, job_class, masks,
     # the entry point on the card (the kernel)
     state = make_cluster_state(total, total, alive, cost, device=DEVICE)
     p, s = g.solve_greedy_gpu_auto(state, *cuda, max_nodes=max_nodes,
-                                   plan=plan)
+                                   plan=plan, class_rows=masks)
     torch.cuda.synchronize()
     k_out = host(p.placed, p.nodes, p.reason, s.avail, s.cost)
 
     # the plain version on the same kernel inputs, on the CPU
     fresh = make_cluster_state(total, total, alive, cost, device=DEVICE)
-    jobs_t, nelig, elig, cpu_total, K, slot = g.kernel_inputs(
-        fresh, *cuda, max_nodes=max_nodes, plan=plan)
+    (jobs_t, nelig, elig, cpu_total, K, slot, owned,
+     n_owned) = g.kernel_inputs(fresh, *cuda, max_nodes=max_nodes,
+                                plan=plan, class_rows=masks)
+    M = g.owned_slots(masks, plan and plan[0], streams)[0].shape[1]
+    lp = g.launch_plan(M, total.shape[1], masks.shape[0], K)
+    if expect_path is not None:
+        check((lp.state, lp.bits) == expect_path,
+              f"{name}: plan {lp}, expected state/bits {expect_path}")
     avail_c, cost_c = fresh.avail.cpu(), fresh.cost.cpu()
     t0 = time.perf_counter()
     placed, reason, chosen = g.greedy_place_plain(
@@ -151,33 +167,40 @@ def kernel_vs_plain(name, total, alive, cost, jobs, job_class, masks,
             err = max(err, int(np.abs(a.astype(np.int64)
                                       - b.astype(np.int64)).max()))
     print(f"[kernel-vs-plain] {name}: J={len(req)} N={len(total)} "
-          f"K={K} streams={streams} placed={int(k_out[0].sum())} "
-          f"bitwise=True plain_cpu_s={plain_s:.3f}", flush=True)
+          f"C={masks.shape[0]} K={K} streams={streams} owned={M} "
+          f"threads={g.THREADS} smem_bytes={lp.smem_bytes} "
+          f"state={lp.state} bits={lp.bits} "
+          f"placed={int(k_out[0].sum())} bitwise=True "
+          f"plain_cpu_s={plain_s:.3f}", flush=True)
     out = {"max_abs_err": err, "plain_s": plain_s, "streams": streams,
-           "K": K, "J": len(req), "C": int(masks.shape[0])}
+           "K": K, "J": len(req), "C": int(masks.shape[0]), "owned": M,
+           "threads": g.THREADS, "smem_bytes": lp.smem_bytes,
+           "state": lp.state, "bits": lp.bits}
     if not timed:
         return out
 
-    # kernel time: CUDA events around the kernel alone, fresh state
-    # copies per run (the entry call above was the warm-up)
-    times = []
-    for _ in range(5):
+    # kernel time: CUDA events around the wrapper's launch alone, fresh
+    # state copies per run (the entry call above was the warm-up)
+    def run():
         a, c = fresh.avail.clone(), fresh.cost.clone()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        g.greedy_place(jobs_t, nelig, elig, cpu_total, a, c, K)
+        g.greedy_place(jobs_t, nelig, elig, cpu_total, a, c, K, owned,
+                       n_owned)
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        return start.elapsed_time(end)
+
+    times = [run() for _ in range(5)]
     # the least work: per admissible job, over its class's eligible
     # nodes, the R compares + eligibility test, and a compare + min per
     # pass (node_num passes)
     jn = jobs_t.reshape(-1, jobs_t.shape[-1]).cpu().numpy().astype(np.int64)
     R = jn.shape[1] - 4
     nn, live, cls = jn[:, R], jn[:, R + 2] != 0, jn[:, R + 3]
-    run = live & (nn >= 1) & (nn <= K)
-    ops = float((nelig.cpu().numpy()[cls[run]] * (R + 1 + 2 * nn[run])).sum())
+    run_ = live & (nn >= 1) & (nn <= K)
+    ops = float((nelig.cpu().numpy()[cls[run_]] * (R + 1 + 2 * nn[run_])).sum())
     J, N = int(live.sum()), len(total)
     nbytes = (J * (R + 4) * 4 + int(nelig.numel()) * 4 + int(elig.numel())
               + N * 4 + 2 * N * R * 4 + 2 * N * 4 + J * (2 + K) * 4)
@@ -187,10 +210,19 @@ def kernel_vs_plain(name, total, alive, cost, jobs, job_class, masks,
                bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
     print(f"[kernel-time] {name}: kernel_ms={out['ms']:.3f} "
-          f"runs={[round(t, 3) for t in times]} bound_ms="
-          f"{out['bound_ms']:.4f} ({out['bound_by']}) plain_cpu_ms="
-          f"{plain_s * 1e3:.1f}", flush=True)
+          f"runs={[round(t, 3) for t in times]} threads={g.THREADS} "
+          f"smem_bytes={lp.smem_bytes} state={lp.state} bits={lp.bits} "
+          f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']}) "
+          f"plain_cpu_ms={plain_s * 1e3:.1f}", flush=True)
     return out
+
+
+def random_classes(rng, n_classes, n, share=0.05):
+    """``n_classes`` overlapping random class masks over n nodes, each
+    node in a class with probability ``share``, every node in some."""
+    masks = rng.random((n_classes, n)) < share
+    masks[rng.integers(0, n_classes, n), np.arange(n)] = True
+    return masks
 
 
 def phase_kernels():
@@ -206,15 +238,40 @@ def phase_kernels():
     res["stream"] = kernel_vs_plain(
         "disjoint-4", total, alive, cost, jobs,
         rng.integers(0, 4, N_JOBS).astype(np.int32), disjoint, 2, 4,
-        timed=True)
+        timed=True, expect_path=("shared", "shared"))
     # (b) plus one class over every node: the serial kernel
     overlap = np.concatenate([disjoint, np.ones((1, N_NODES), bool)])
     jc = rng.integers(0, 4, N_JOBS).astype(np.int32)
     jc[rng.random(N_JOBS) < 0.1] = 4
     res["serial"] = kernel_vs_plain(
         "overlapping", total, alive, cost, jobs, jc, overlap, 2, 1,
-        timed=True)
-    # (c) edge cases at small size
+        timed=True, expect_path=("shared", "shared"))
+    # (c) the owned state in device memory, forced by size: serial over
+    # 20,000 nodes (320 KB of state); then the class bits in device
+    # memory (600 classes over 4,096 nodes), then both (1,000 classes
+    # over 16,384 nodes)
+    n2 = 2 * N_NODES
+    lay2, total2 = cluster_arrays(rng, n2)
+    part2 = np.arange(n2) % 4
+    masks2 = np.concatenate([np.stack([part2 == c for c in range(4)]),
+                             np.ones((1, n2), bool)])
+    jc2 = rng.integers(0, 5, n2).astype(np.int32)
+    res["global"] = kernel_vs_plain(
+        "global-state", total2, rng.random(n2) > 0.005,
+        rng.integers(0, 50_000, n2).astype(np.int32),
+        job_arrays(rng, lay2, n2), jc2, masks2, 2, 1,
+        expect_path=("global", "shared"))
+    for name, n, C, J, path in (("global-bits", 4096, 600, 4000,
+                                 ("shared", "global")),
+                                ("global-both", 16_384, 1000, 3000,
+                                 ("global", "global"))):
+        lay3, total3 = cluster_arrays(rng, n)
+        kernel_vs_plain(name, total3, rng.random(n) > 0.01, None,
+                        job_arrays(rng, lay3, J, max_gang=3),
+                        rng.integers(0, C, J).astype(np.int32),
+                        random_classes(rng, C, n), 3, 1,
+                        expect_path=path)
+    # (d) edge cases at small size
     n = 256
     lay, small = cluster_arrays(rng, n)
     part = np.arange(n) % 4
@@ -237,6 +294,48 @@ def phase_kernels():
     kernel_vs_plain("gangs-k8-serial", small, rng.random(n) > 0.1,
                     rng.integers(0, 100, n).astype(np.int32), gangs, jc,
                     np.concatenate([masks4, np.ones((1, n), bool)]), 8, 1)
+    # gangs above the kernel's 8 keys per thread: the pass path
+    big = job_arrays(rng, lay, 600, max_gang=32)
+    kernel_vs_plain("gangs-k32-stream", small, rng.random(n) > 0.1,
+                    rng.integers(0, 100, n).astype(np.int32), big, jc,
+                    masks4, 32, 4)
+    kernel_vs_plain("gangs-k32-serial", small, rng.random(n) > 0.1,
+                    rng.integers(0, 100, n).astype(np.int32), big, jc,
+                    np.concatenate([masks4, np.ones((1, n), bool)]), 32, 1)
+    # many slots a thread and few distinct costs: ties inside each
+    # thread's list, gangs up to 8
+    n5 = 4096
+    lay5, total5 = cluster_arrays(rng, n5)
+    part5 = np.arange(n5) % 4
+    m5 = np.stack([part5 == c for c in range(4)])
+    ties = job_arrays(rng, lay5, 2000, max_gang=8)
+    jc5 = rng.integers(0, 4, 2000).astype(np.int32)
+    for name, m, S in (("ties-k8-stream", m5, 4),
+                       ("ties-k8-serial", np.concatenate(
+                           [m5, np.ones((1, n5), bool)]), 1)):
+        kernel_vs_plain(name, total5, rng.random(n5) > 0.02,
+                        rng.integers(0, 4, n5).astype(np.int32), ties, jc5,
+                        m, 8, S)
+    # unbalanced streams: classes of 55% / 25% / 12% / 8% of the nodes
+    n4 = 1024
+    lay4, total4 = cluster_arrays(rng, n4)
+    cut = np.searchsorted(np.cumsum([0.55, 0.25, 0.12]) * n4,
+                          np.arange(n4), side="right")
+    kernel_vs_plain("unbalanced-streams", total4, rng.random(n4) > 0.05,
+                    rng.integers(0, 1000, n4).astype(np.int32),
+                    job_arrays(rng, lay4, 3000, max_gang=4),
+                    rng.integers(0, 4, 3000).astype(np.int32),
+                    np.stack([cut == c for c in range(4)]), 4, 4)
+    # a stream whose class owns no alive node
+    dead3 = part != 3
+    kernel_vs_plain("dead-class-stream", small, dead3, None, few,
+                    rng.integers(0, 4, 400).astype(np.int32), masks4, 2, 4)
+    # a stream that owns no node at all (its class is empty)
+    empty3 = masks4.copy()
+    empty3[3] = False
+    kernel_vs_plain("empty-class-stream", small, np.ones(n, bool), None,
+                    few, rng.integers(0, 4, 400).astype(np.int32), empty3,
+                    2, 4)
     return res
 
 
@@ -251,10 +350,14 @@ def phase_attribution():
     J, N, R, BJ = N_JOBS, N_NODES, 3, 256
     ins = kattr.kernel_inputs(*kattr.make_data(J, N, R, BJ), device=DEVICE)
     res = {}
+    vp = {"threads": kattr.THREADS,
+          **kattr.variant_plan(ins[1].shape[0], R)._asdict()}
+    print(f"[kattr] launch plan: {vp}", flush=True)
     for kind, err in kattr.check_variants(*ins, BJ).items():
         plain = kattr.event_ms(
             lambda: kattr.attr_variant_plain(kind, *ins, BJ))
-        res[kind] = {"max_abs_err": err, "plain_ms": float(np.median(plain))}
+        res[kind] = {"max_abs_err": err, "plain_ms": float(np.median(plain)),
+                     "launch": vp}
         print(f"[kattr-vs-plain] {kind}: J={ins[0].shape[1]} "
               f"N={ins[1].shape[0]} bitwise=True plain_card_ms="
               f"{res[kind]['plain_ms']:.3f}", flush=True)
@@ -264,6 +367,13 @@ def phase_attribution():
     kattr.check_variants(*kattr.kernel_inputs(job, avail, cost,
                                               device=DEVICE), BJ)
     print("[kattr-vs-plain] all-infeasible J=512 N=1024: bitwise=True",
+          flush=True)
+    # exactly one feasible node: select's second key is (INT32_MAX, that
+    # node), the first winner itself
+    avail[:, 0, 5] = 10_000
+    kattr.check_variants(*kattr.kernel_inputs(job, avail, cost,
+                                              device=DEVICE), BJ)
+    print("[kattr-vs-plain] one-feasible J=512 N=1024: bitwise=True",
           flush=True)
 
     # the attribution tool's path
@@ -442,7 +552,7 @@ def phase_cycle(overlap: bool):
         state, torch.from_numpy(req), torch.from_numpy(nn),
         torch.from_numpy(tl), torch.from_numpy(valid),
         torch.from_numpy(jc), torch.from_numpy(rows_np),
-        max_nodes=max_nodes, plan=plan)
+        max_nodes=max_nodes, plan=plan, class_rows=rows_np)
     for what, a, b in zip(("placed", "nodes", "reason"), record["out"],
                           host(p.placed, p.nodes, p.reason)):
         check(np.array_equal(a, b),
@@ -623,7 +733,7 @@ def phase_backfill():
         tstate, torch.from_numpy(req), torch.from_numpy(nn),
         torch.from_numpy(tl), torch.from_numpy(valid),
         torch.from_numpy(jc), torch.from_numpy(rows_np),
-        max_nodes=max_nodes, plan=plan)
+        max_nodes=max_nodes, plan=plan, class_rows=rows_np)
     for what, a, b in zip(("placed", "nodes", "reason"), record["tail_out"],
                           host(p.placed, p.nodes, p.reason)):
         check(np.array_equal(a, b),
@@ -712,6 +822,12 @@ def main() -> int:
                    "serial_C": se["C"]},
         "attribution_full_ms": ares["full"]["ms"],
         "attribution_full_us_per_job": ares["full"]["us_per_job"],
+        "design": DESIGN,
+        "launch": {k: {f: r[f] for f in ("owned", "threads", "smem_bytes",
+                                         "state", "bits")}
+                   for k, r in (("stream", st), ("serial", se))},
+        "global_state_case": {f: kres["global"][f] for f in (
+            "J", "owned", "threads", "smem_bytes", "state", "bits")},
     }]
     for variant in ("floor", "bcast", "onemin", "select"):
         a = ares[variant]
@@ -734,6 +850,8 @@ def main() -> int:
             "shapes": {"J": N_JOBS, "N": N_NODES,
                        "N_pad": -(-N_NODES // 1024) * 1024, "R": 3,
                        "BJ": 256},
+            "design": DESIGN,
+            "launch": a["launch"],
         })
     print(json.dumps({"cycles": cycles}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -888,10 +888,12 @@ class JobScheduler:
                                 known_disjoint=True)
         if plan is None:
             placements, new_state = solve_greedy_gpu(
-                state, *args, max_nodes=max_nodes)
+                state, *args, max_nodes=max_nodes,
+                class_rows=b.class_rows_np)
         else:
             placements, new_state = solve_greedy_gpu_auto(
-                state, *args, max_nodes=max_nodes, plan=plan)
+                state, *args, max_nodes=max_nodes, plan=plan,
+                class_rows=b.class_rows_np)
         if use_resident:
             self._resident.adopt(new_state)
         num_streams = plan[1] if plan is not None else 1

@@ -9,7 +9,13 @@ out for the kernel (``csrc/greedy_place.cu``):
 * ``nelig``  int32[C]: eligible (alive) nodes per class;
 * ``elig``   bool[C, N]: class masks AND alive;
 * ``cpu_total`` float32[N]; ``avail`` int32[N, R] and ``cost`` int32[N],
-  both updated in place.
+  both updated in place;
+* ``owned`` int32[S, M], ``n_owned`` int32[S]: each stream's owned node
+  ids (the union of its classes' rows, ascending; ``owned_slots``).
+
+A block is ``THREADS`` threads.  ``launch_plan`` picks, by size before
+the launch, whether the owned state and the class bits sit in shared
+memory.
 
 On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
 runs ``greedy_place_plain``, the same function as a per-job loop over
@@ -26,6 +32,7 @@ part_mask adapter).  Semantics are bit-identical to
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -100,25 +107,76 @@ def _kernel():
     fn = lib.greedy_place_launch
     if fn.argtypes is None:
         # without argtypes ctypes passes each pointer as a 32-bit int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-# threads per block in greedy_place.cu; thread k owns the k-th winner
-_KERNEL_THREADS = 1024
+# mirrors of csrc/place_common.cuh and greedy_place.cu
+# threads per block of both kernels: the best of 256, 512 and 1,024 at
+# 2,500 and at 10,000 owned slots (PERF.md)
+THREADS = 512
+_WARPS = THREADS // 32
+_MAX_K = 1024
 _MAX_FIELDS = 64
+_K_MAX = 8           # keys a thread keeps: gangs up to this take one walk
+_JOB_WORDS = 2048
+# shared memory one block may take on an H100 (227 KB)
+SMEM_LIMIT = 232_448
 
 
-def _check(jobs, nelig, elig, cpu_total, avail, cost, k):
+class LaunchPlan(NamedTuple):
+    """How ``greedy_place.cu`` (and the attribution variants) lay out one
+    solve: dynamic shared-memory bytes, and where the owned state and the
+    eligibility bits live (``"shared"`` or ``"global"``; bits ``"none"``
+    without classes)."""
+    smem_bytes: int
+    state: str
+    bits: str
+
+
+def _a16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def smem_bytes(M: int, R: int, C: int, K: int, state: bool,
+               bits: bool) -> int:
+    """``place::layout(...).total``: the dynamic shared memory of a block
+    owning M slots (R dims, C classes, K chosen columns)."""
+    total = (_a16(8 * 2 * _K_MAX * _WARPS) + _a16(8 * (_WARPS + 1))
+             + _a16(4 * _JOB_WORDS) + _a16(4 * K))
+    if state:
+        # one record per slot: R dims and the cost, padded to int4s
+        total += _a16(4 * 4 * ((R + 4) // 4) * M)
+    if bits:
+        total += _a16(4 * C * ((M + 31) // 32))
+    return total
+
+
+def launch_plan(M: int, R: int, C: int, K: int) -> LaunchPlan:
+    """Pick the kernel's layout by size, before the launch: the owned
+    state in shared memory when it fits, then the class bits when they
+    fit beside it; whatever does not fit is read from device memory by
+    the same kernel.  ``C = 0``: no eligibility (the attribution
+    variants)."""
+    state = smem_bytes(M, R, C, K, True, False) <= SMEM_LIMIT
+    bits = C > 0 and smem_bytes(M, R, C, K, state, True) <= SMEM_LIMIT
+    return LaunchPlan(smem_bytes(M, R, C, K, state, bits),
+                      "shared" if state else "global",
+                      "shared" if bits else "global" if C else "none")
+
+
+def _check(jobs, nelig, elig, cpu_total, avail, cost, k, owned, n_owned):
     dev = jobs.device
     for name, t, dtypes in (("jobs", jobs, (torch.int32,)),
                             ("nelig", nelig, (torch.int32,)),
                             ("elig", elig, (torch.bool, torch.uint8)),
                             ("cpu_total", cpu_total, (torch.float32,)),
                             ("avail", avail, (torch.int32,)),
-                            ("cost", cost, (torch.int32,))):
+                            ("cost", cost, (torch.int32,)),
+                            ("owned", owned, (torch.int32,)),
+                            ("n_owned", n_owned, (torch.int32,))):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, jobs on {dev}")
         if t.dtype not in dtypes:
@@ -136,18 +194,27 @@ def _check(jobs, nelig, elig, cpu_total, avail, cost, k):
             or cpu_total.shape != (n,) or nelig.shape != (elig.shape[0],)):
         raise ValueError("elig/cost/cpu_total/nelig shapes disagree with "
                          "avail")
-    if not 0 <= k <= min(n, _KERNEL_THREADS):
-        raise ValueError(f"K={k} outside [0, min(N, {_KERNEL_THREADS})]")
+    if (owned.dim() != 2 or owned.shape[0] != jobs.shape[0]
+            or n_owned.shape != (jobs.shape[0],)):
+        raise ValueError("owned must be [S, M] and n_owned [S]")
+    if not 0 <= k <= min(n, _MAX_K):
+        raise ValueError(f"K={k} outside [0, min(N, {_MAX_K})]")
 
 
-def greedy_place(jobs, nelig, elig, cpu_total, avail, cost, k: int):
+def greedy_place(jobs, nelig, elig, cpu_total, avail, cost, k: int,
+                 owned=None, n_owned=None):
     """Kernel wrapper: see the module docstring.  CPU tensors take
     ``greedy_place_plain``; CUDA tensors launch the kernel on the current
-    stream or raise.  Outputs are allocated here."""
+    stream or raise.  ``owned`` int32[S, M] / ``n_owned`` int32[S] are
+    the streams' owned node ids (``owned_slots``), which the kernel
+    needs and the plain version does not.  Outputs are allocated
+    here."""
     if jobs.device.type == "cpu":
         return greedy_place_plain(jobs, nelig, elig, cpu_total, avail,
                                   cost, k)
-    _check(jobs, nelig, elig, cpu_total, avail, cost, k)
+    if owned is None or n_owned is None:
+        raise ValueError("the kernel needs owned / n_owned (owned_slots)")
+    _check(jobs, nelig, elig, cpu_total, avail, cost, k, owned, n_owned)
     S, L, _ = jobs.shape
     n, r = avail.shape
     dev = jobs.device
@@ -156,18 +223,42 @@ def greedy_place(jobs, nelig, elig, cpu_total, avail, cost, k: int):
     chosen = torch.empty((S, L, k), dtype=torch.int32, device=dev)
     if S == 0 or L == 0:
         return placed, reason, chosen
-    fn = _kernel()
-    rc = fn(jobs.data_ptr(), nelig.data_ptr(), elig.data_ptr(),
-            cpu_total.data_ptr(), avail.data_ptr(), cost.data_ptr(),
-            placed.data_ptr(), reason.data_ptr(), chosen.data_ptr(),
-            S, n, r, L, k, torch.cuda.current_stream(dev).cuda_stream)
+    plan = launch_plan(owned.shape[1], r, elig.shape[0], k)
+    rc = _kernel()(jobs.data_ptr(), nelig.data_ptr(), elig.data_ptr(),
+                   cpu_total.data_ptr(), owned.data_ptr(),
+                   n_owned.data_ptr(), avail.data_ptr(), cost.data_ptr(),
+                   placed.data_ptr(), reason.data_ptr(), chosen.data_ptr(),
+                   S, n, r, elig.shape[0], L, k, owned.shape[1],
+                   plan.state == "shared", plan.bits == "shared",
+                   plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"greedy_place launch failed: CUDA error {rc}")
+        raise RuntimeError(f"greedy_place launch failed: CUDA error {rc} "
+                           f"({plan})")
     greedy_place.launches += 1
     return placed, reason, chosen
 
 
 greedy_place.launches = 0
+
+
+def owned_slots(class_rows, stream_of_class=None, num_streams: int = 1):
+    """Host side: each stream's owned node ids, the union of its classes'
+    rows, ascending: ``(owned int32[S, M], n_owned int32[S])``, padded
+    with -1 to the longest list M.  ``stream_of_class`` None puts every
+    class in one stream (the serial kernel).  Built from the class masks,
+    not from ``elig``, so it needs no read-back from the device; nodes
+    in no class are owned by no stream and left untouched."""
+    rows = np.asarray(class_rows, bool)
+    soc = (np.zeros(rows.shape[0], np.int64) if stream_of_class is None
+           else np.asarray(stream_of_class))
+    lists = [np.flatnonzero(rows[soc == s].any(axis=0))
+             for s in range(num_streams)]
+    n_owned = np.array([len(x) for x in lists], np.int32)
+    owned = np.full((num_streams, int(n_owned.max(initial=0))), -1,
+                    np.int32)
+    for s, x in enumerate(lists):
+        owned[s, :len(x)] = x
+    return owned, n_owned
 
 
 # ---- layout around the kernel ----
@@ -192,23 +283,31 @@ def _job_scalars(req, node_num, time_limit, valid, job_class, C):
 
 
 def kernel_inputs(state: ClusterState, req, node_num, time_limit, valid,
-                  job_class, class_masks, max_nodes: int, plan=None):
+                  job_class, class_masks, max_nodes: int, plan=None, *,
+                  class_rows):
     """Lay one solve out for the kernel: ``(jobs, nelig, elig,
-    cpu_total, K, slot)``.  ``jobs`` is [1, J, R+4] for the serial
-    kernel (``plan`` None) or [S, L, R+4] with the jobs regrouped per
-    stream (classes were packed into streams by ``plan_streams``, which
-    verified their disjointness); ``slot[j]`` is job j's flat index into
-    the [S * L] outputs."""
+    cpu_total, K, slot, owned, n_owned)``.  ``jobs`` is [1, J, R+4] for
+    the serial kernel (``plan`` None) or [S, L, R+4] with the jobs
+    regrouped per stream (classes were packed into streams by
+    ``plan_streams``, which verified their disjointness); ``slot[j]`` is
+    job j's flat index into the [S * L] outputs.  ``owned`` / ``n_owned``
+    are the streams' owned node ids (``owned_slots``), built from
+    ``class_rows``, the host copy of ``class_masks``, on the card only:
+    the plain version does not read them, so on the CPU they are None."""
     dev = state.device
     J = req.shape[0]
     K = min(max_nodes, state.num_nodes)
     C = class_masks.shape[0]
     elig, nelig, cpu_total = _fold_cluster(state, class_masks)
     scal = _job_scalars(req, node_num, time_limit, valid, job_class, C)
+    stream_of_class, S, L = plan if plan is not None else (None, 1, J)
+    owned = n_owned = None
+    if dev.type != "cpu":
+        owned, n_owned = (torch.from_numpy(x).to(dev) for x in owned_slots(
+            class_rows, stream_of_class, S))
     if plan is None:
         return (scal[None].contiguous(), nelig, elig, cpu_total, K,
-                torch.arange(J, device=dev))
-    stream_of_class, S, L = plan
+                torch.arange(J, device=dev), owned, n_owned)
     soc = torch.as_tensor(np.asarray(stream_of_class), dtype=torch.int64,
                           device=dev)
     stream = soc[scal[:, -1].to(torch.int64)]           # [J]
@@ -224,30 +323,34 @@ def kernel_inputs(state: ClusterState, req, node_num, time_limit, valid,
     jobs[lin] = scal[order]
     slot = torch.empty_like(lin)
     slot[order] = lin
-    return jobs.view(S, L, -1), nelig, elig, cpu_total, K, slot
+    return (jobs.view(S, L, -1), nelig, elig, cpu_total, K, slot, owned,
+            n_owned)
 
 
 def _solve(state: ClusterState, req, node_num, time_limit, valid,
-           job_class, class_masks, max_nodes: int, plan
+           job_class, class_masks, max_nodes: int, plan, class_rows
            ) -> tuple[Placements, ClusterState]:
-    jobs, nelig, elig, cpu_total, K, slot = kernel_inputs(
+    jobs, nelig, elig, cpu_total, K, slot, owned, n_owned = kernel_inputs(
         state, req, node_num, time_limit, valid, job_class, class_masks,
-        max_nodes, plan)
+        max_nodes, plan, class_rows=class_rows)
     placed, reason, chosen = greedy_place(jobs, nelig, elig, cpu_total,
-                                          state.avail, state.cost, K)
+                                          state.avail, state.cost, K,
+                                          owned, n_owned)
     return Placements(placed=placed.reshape(-1)[slot].to(torch.bool),
                       nodes=chosen.reshape(-1, K)[slot],
                       reason=reason.reshape(-1)[slot]), state
 
 
 def solve_greedy_gpu(state: ClusterState, req, node_num, time_limit,
-                     valid, job_class, class_masks, max_nodes: int = 1
-                     ) -> tuple[Placements, ClusterState]:
+                     valid, job_class, class_masks, max_nodes: int = 1, *,
+                     class_rows) -> tuple[Placements, ClusterState]:
     """Single-kernel greedy solve (one serial job stream).  Same contract
     as ``solve_greedy`` with eligibility given as (job_class,
-    class_masks); ``state`` is updated in place and returned."""
+    class_masks); ``class_rows`` is the masks' host copy (numpy [C, N]),
+    from which the kernel's owned slots are built without a read-back.
+    ``state`` is updated in place and returned."""
     return _solve(state, req, node_num, time_limit, valid, job_class,
-                  class_masks, max_nodes, plan=None)
+                  class_masks, max_nodes, None, class_rows)
 
 
 def plan_streams(job_class, class_masks, max_streams: int = 4,
@@ -292,26 +395,28 @@ def solve_greedy_gpu_auto(state: ClusterState, req, node_num, time_limit,
                           valid, job_class, class_masks,
                           max_nodes: int = 1, block_jobs: int = 256,
                           max_streams: int = 4, plan=None,
-                          return_plan: bool = False):
+                          return_plan: bool = False, *, class_rows):
     """Dispatch: the streamed kernel when eligibility classes are
     disjoint and balanced enough to profit, the serial kernel otherwise.
     Semantics are identical either way.
 
     ``plan`` short-circuits the host-side planner with a precomputed
     ``plan_streams`` result.  ``return_plan=True`` appends the plan this
-    call actually ran with (None for the serial kernel)."""
+    call actually ran with (None for the serial kernel).  ``class_rows``
+    is the host copy of ``class_masks``, as for ``solve_greedy_gpu``."""
     if plan is None:
-        plan = plan_streams(job_class, class_masks,
+        plan = plan_streams(job_class, class_rows,
                             max_streams=max_streams, block_jobs=block_jobs)
     if plan is None:
         out = solve_greedy_gpu(state, req, node_num, time_limit, valid,
-                               job_class, class_masks, max_nodes=max_nodes)
+                               job_class, class_masks, max_nodes=max_nodes,
+                               class_rows=class_rows)
         return (*out, None) if return_plan else out
     # S-stream solve: one kernel block per stream, results scattered
     # back to the original order; bit-identical to the serial path
     # because the streams' class masks are pairwise disjoint
     out = _solve(state, req, node_num, time_limit, valid, job_class,
-                 class_masks, max_nodes, plan)
+                 class_masks, max_nodes, plan, class_rows)
     return (*out, plan) if return_plan else out
 
 
@@ -329,4 +434,5 @@ def solve_greedy_gpu_from_batch(state: ClusterState, jobs: JobBatch,
         torch.as_tensor(job_class, device=dev),
         torch.as_tensor(class_masks, device=dev),
         max_nodes=max_nodes, block_jobs=block_jobs,
-        max_streams=max_streams, return_plan=return_plan)
+        max_streams=max_streams, return_plan=return_plan,
+        class_rows=class_masks)

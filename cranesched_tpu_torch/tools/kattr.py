@@ -2,13 +2,17 @@
 stage (port of ``tools/kattr.py``).
 
 Four stripped variants of ``csrc/greedy_place.cu``'s per-job loop
-(``csrc/kattr_variants.cu``) run over the north-star shape, each
-returning a checksum instead of placements:
+(``csrc/kattr_variants.cu``, built from the same stages in
+``csrc/place_common.cuh``) run over the north-star shape, each
+returning a checksum instead of placements.  One block owns every node
+(state in shared memory when it fits, as ``variant_plan`` says):
 
-  floor    stage the job's scalars behind a barrier, sum them
-  bcast    floor + the strided node walk testing the request
-  onemin   bcast + one block minimum of a (cost, id) key per node
-  select   bcast + two minimum passes (a gang of two)
+  floor    job scalars staged a chunk at a time, summed; one barrier
+           per job
+  bcast    floor + the owned-slot walk testing the request
+  onemin   bcast + each thread's least (cost, id) key, the warp merge
+           and the one-barrier block merge
+  select   onemin with the top 2 of the same walk (a gang of two)
 
 ``full`` is the real kernel, ``greedy_place`` with one stream and K = 2,
 on the same data.  Differences between the rows attribute its time per
@@ -45,13 +49,12 @@ import numpy as np
 import torch
 
 from cranesched_tpu_torch.device import resolve_device
+from cranesched_tpu_torch.models.gpu_solver import THREADS, launch_plan
 from cranesched_tpu_torch.models.solver import COST_INF
 
 SUB, LANES = 8, 128
 VARIANTS = ("floor", "bcast", "onemin", "select")
 _KIND = {name: i for i, name in enumerate(VARIANTS)}
-# threads of the variants' single block (kattr_variants.cu)
-_THREADS = 1024
 # H100 SXM int32 rate: 67 TFLOP/s float32 (NVIDIA's data sheet) counts
 # an FMA as two operations on 128 float32 lanes per SM; an SM has 64
 # int32 lanes (Hopper architecture white paper)
@@ -142,8 +145,8 @@ def _kernel():
     fn = load("kattr_variants").kattr_launch
     if fn.argtypes is None:
         # without argtypes ctypes passes each pointer as a 32-bit int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -165,6 +168,13 @@ def _check(job, avail, cost, block_jobs):
                          "multiple of block_jobs")
 
 
+def variant_plan(N: int, R: int):
+    """The variants' launch plan: one block owning all N nodes, laid out
+    as ``greedy_place`` lays out a serial solve over N nodes (no class
+    bits)."""
+    return launch_plan(N, R, 0, 0)
+
+
 def attr_variant(kind: str, job, avail, cost, block_jobs: int
                  ) -> torch.Tensor:
     """Kernel wrapper: the checksum ``int32[NB, 1, BJ]`` of variant
@@ -177,14 +187,19 @@ def attr_variant(kind: str, job, avail, cost, block_jobs: int
     _check(job, avail, cost, block_jobs)
     F, J = job.shape
     N, R = avail.shape
-    out = torch.empty(J, dtype=torch.int32, device=job.device)
-    side = torch.empty(_THREADS, dtype=torch.int32, device=job.device)
+    plan = variant_plan(N, R)
+    dev = job.device
+    out = torch.empty(J, dtype=torch.int32, device=dev)
+    side = torch.empty(THREADS, dtype=torch.int32, device=dev)
+    ids = torch.arange(N, dtype=torch.int32, device=dev)
     rc = _kernel()(_KIND[kind], job.data_ptr(), avail.data_ptr(),
-                   cost.data_ptr(), out.data_ptr(), side.data_ptr(), J, N,
-                   R, block_jobs,
-                   torch.cuda.current_stream(job.device).cuda_stream)
+                   cost.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                   side.data_ptr(), J, N, R, block_jobs,
+                   plan.state == "shared", plan.smem_bytes,
+                   torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"kattr {kind} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"kattr {kind} launch failed: CUDA error {rc} "
+                           f"({plan})")
     attr_variant.launches[kind] += 1
     return out.reshape(J // block_jobs, 1, block_jobs)
 
@@ -237,7 +252,7 @@ def bound(kind: str, J: int, N: int, R: int) -> tuple[float, str]:
     if passes:
         nbytes += N * 4
     if kind == "bcast":
-        nbytes += _THREADS * 4
+        nbytes += THREADS * 4
     if kind == "full":
         # avail and cost written back, placements and reasons out
         nbytes += N * (R + 1) * 4 + J * (2 + 2) * 4
@@ -285,7 +300,10 @@ def attribute(job, avail, cost, block_jobs: int, kinds=VARIANTS
     """Time each variant (one warm-up launch, then ``REPS`` CUDA-event
     runs, median) and the real kernel on the same data.  Returns one row
     per variant and a last row ``full``."""
-    from cranesched_tpu_torch.models.gpu_solver import greedy_place
+    from cranesched_tpu_torch.models.gpu_solver import (
+        greedy_place,
+        owned_slots,
+    )
 
     F, J = job.shape
     N, R = avail.shape
@@ -295,14 +313,17 @@ def attribute(job, avail, cost, block_jobs: int, kinds=VARIANTS
         times = event_ms(
             lambda: attr_variant(kind, job, avail, cost, block_jobs))
         rows.append(dict(variant=kind, runs=times))
-    args = greedy_inputs(job, avail, cost)
-    jobs, nelig, elig, cpu_total, a0, c0, K = args
-    greedy_place(jobs, nelig, elig, cpu_total, a0.clone(), c0.clone(), K)
+    jobs, nelig, elig, cpu_total, a0, c0, K = greedy_inputs(job, avail,
+                                                            cost)
+    owned = [torch.from_numpy(x).to(job.device)
+             for x in owned_slots(elig.cpu().numpy())]   # every node
+    greedy_place(jobs, nelig, elig, cpu_total, a0.clone(), c0.clone(), K,
+                 *owned)
     times = []
     for _ in range(REPS):
         a, c = a0.clone(), c0.clone()
-        times += event_ms(
-            lambda: greedy_place(jobs, nelig, elig, cpu_total, a, c, K), 1)
+        times += event_ms(lambda: greedy_place(
+            jobs, nelig, elig, cpu_total, a, c, K, *owned), 1)
     rows.append(dict(variant="full", runs=times))
     for row in rows:
         row["ms"] = float(np.median(row["runs"]))

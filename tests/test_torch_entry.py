@@ -149,14 +149,21 @@ def test_kernel_wrapper_validates_before_launch():
     cpu_total = torch.ones(4)
     avail = torch.zeros((4, 3), dtype=torch.int32)
     cost = torch.zeros(4, dtype=torch.int32)
-    gpu_solver._check(jobs, nelig, elig, cpu_total, avail, cost, 2)
+    owned = (torch.arange(4, dtype=torch.int32)[None],
+             torch.full((1,), 4, dtype=torch.int32))
+    gpu_solver._check(jobs, nelig, elig, cpu_total, avail, cost, 2, *owned)
     with pytest.raises(TypeError):
         gpu_solver._check(jobs, nelig, elig, cpu_total, avail.float(),
-                          cost, 2)
+                          cost, 2, *owned)
     with pytest.raises(ValueError):
         gpu_solver._check(jobs[:, :, :6].contiguous(), nelig, elig,
-                          cpu_total, avail, cost, 2)
+                          cpu_total, avail, cost, 2, *owned)
     with pytest.raises(ValueError):
-        gpu_solver._check(jobs, nelig, elig, cpu_total, avail, cost, 5)
+        gpu_solver._check(jobs, nelig, elig, cpu_total, avail, cost, 5,
+                          *owned)
+    with pytest.raises(ValueError):   # one owned row per stream
+        gpu_solver._check(jobs, nelig, elig, cpu_total, avail, cost, 2,
+                          owned[0][:, :2].repeat(2, 1), owned[1])
     with pytest.raises(ValueError):
-        gpu_solver._check(jobs, nelig, elig, cpu_total, avail.t(), cost, 2)
+        gpu_solver._check(jobs, nelig, elig, cpu_total, avail.t(), cost, 2,
+                          *owned)

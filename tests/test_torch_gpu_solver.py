@@ -75,7 +75,7 @@ def _check_auto(state, jobs, max_nodes, expect_streams):
     *got, used = gpu_solver.solve_greedy_gpu_auto(
         _torch_state(state), t.req, t.node_num, t.time_limit, t.valid,
         torch.as_tensor(job_class), torch.as_tensor(masks),
-        max_nodes=max_nodes, return_plan=True)
+        max_nodes=max_nodes, return_plan=True, class_rows=masks)
     assert (used is not None) == expect_streams
     _same(ref, got)
     _same(pal, got)
@@ -177,14 +177,16 @@ def test_return_plan_reports_the_plan_run():
     args = (t.req, t.node_num, t.time_limit, t.valid,
             torch.as_tensor(jc), torch.as_tensor(masks))
     *_, used = gpu_solver.solve_greedy_gpu_auto(
-        _torch_state(state), *args, max_nodes=2, return_plan=True)
+        _torch_state(state), *args, max_nodes=2, return_plan=True,
+        class_rows=masks)
     assert used is not None and used[1] >= 2
     out = gpu_solver.solve_greedy_gpu_auto(_torch_state(state), *args,
-                                           max_nodes=2, plan=used)
+                                           max_nodes=2, plan=used,
+                                           class_rows=masks)
     assert len(out) == 2
     *_, used = gpu_solver.solve_greedy_gpu_auto(
         _torch_state(state), *args, max_nodes=2, max_streams=1,
-        return_plan=True)
+        return_plan=True, class_rows=masks)
     assert used is None
 
 
@@ -216,5 +218,120 @@ def test_factored_batch_from_jax_values():
     got = gpu_solver.solve_greedy_gpu_auto(
         _torch_state(state), batch.req, batch.node_num, batch.time_limit,
         batch.valid, batch.job_class, batch.class_masks, max_nodes=2,
-        plan=plan)
+        plan=plan, class_rows=batch.class_rows_np)
     _same(jax_solve_greedy(state, jobs, max_nodes=2), got)
+
+
+# ---- the kernel's owned-slot layout and launch plan ----
+
+
+def _layout_case(name):
+    """(class masks [C, N], alive [N], job_class [J]) for one layout."""
+    rng = np.random.default_rng(len(name))
+    n = 64
+    part = np.arange(n) % 4
+    disjoint = np.stack([part == c for c in range(4)])
+    alive = rng.random(n) > 0.1
+    jc = rng.integers(0, 4, 400).astype(np.int32)
+    if name == "disjoint":
+        return disjoint, alive, jc
+    if name == "overlapping":
+        jc[::7] = 4
+        return np.concatenate([disjoint, np.ones((1, n), bool)]), alive, jc
+    if name == "dead-class":
+        return disjoint, alive & (part != 2), jc
+    if name == "nodes-in-no-class":
+        return disjoint & (np.arange(n) < 48), alive, jc
+    # unbalanced: classes of 40, 12, 8 and 4 nodes
+    cut = np.searchsorted([40, 52, 60], np.arange(n), side="right")
+    return np.stack([cut == c for c in range(4)]), alive, jc
+
+
+@pytest.mark.parametrize("name", ["disjoint", "overlapping", "dead-class",
+                                  "nodes-in-no-class", "unbalanced"])
+def test_owned_slots_from_kernel_inputs(name):
+    """Each stream owns the union of its classes' rows, ascending, padded
+    with -1; streams own disjoint nodes; the serial stream owns every
+    class row; every node a job may take (``kernel_inputs``' elig) is
+    owned by its stream.  ``kernel_inputs`` builds the slots with
+    ``owned_slots`` from the host rows and its plan on the card only: on
+    the CPU, where the plain version runs, it builds none."""
+    masks, alive, jc = _layout_case(name)
+    C, n = masks.shape
+    rng = np.random.default_rng(1)
+    total = np.tile([64, 1 << 10, 1 << 10], (n, 1)).astype(np.int32)
+    state = convert.cluster_state(total, total, alive, None, device="cpu")
+    J = len(jc)
+    args = (torch.ones((J, 3), dtype=torch.int32),
+            torch.as_tensor(rng.integers(1, 3, J), dtype=torch.int32),
+            torch.full((J,), 60, dtype=torch.int32),
+            torch.ones(J, dtype=torch.bool), torch.as_tensor(jc),
+            torch.as_tensor(masks))
+    plan = gpu_solver.plan_streams(jc, masks)
+    assert (plan is None) == (name == "overlapping")
+    out = gpu_solver.kernel_inputs(state, *args, max_nodes=2, plan=plan,
+                                   class_rows=masks)
+    jobs, nelig, elig, _, _, slot, owned, n_owned = out
+    assert owned is None and n_owned is None
+    S = 1 if plan is None else plan[1]
+    soc = np.zeros(C, int) if plan is None else plan[0]
+    owned, n_owned = gpu_solver.owned_slots(
+        masks, None if plan is None else plan[0], S)
+    assert owned.dtype == np.int32 and owned.shape[0] == S
+    assert owned.shape[1] == n_owned.max() and n_owned.shape == (S,)
+    seen = np.zeros(n, int)
+    for s in range(S):
+        mine = owned[s, :n_owned[s]]
+        np.testing.assert_array_equal(
+            mine, np.flatnonzero(masks[soc == s].any(axis=0)))
+        assert (np.diff(mine) > 0).all()
+        assert (owned[s, n_owned[s]:] == -1).all()
+        seen[mine] += 1
+    assert seen.max(initial=0) <= 1                  # disjoint
+    np.testing.assert_array_equal(seen > 0, masks.any(axis=0))
+    # every node a job's class may take lies in its stream's slots
+    el = elig.numpy()
+    stream_of_job = soc[jc]
+    for c in range(C):
+        for s in set(stream_of_job[jc == c].tolist()):
+            assert set(np.flatnonzero(el[c])) <= set(
+                owned[s, :n_owned[s]].tolist())
+
+
+# (M, R, C, K) -> (state, bits): the smoke shapes (streamed and serial
+# at N = 10,000, R = 3, C = 5) fit in shared memory; larger ones do not
+_PLANS = [
+    ((10_000, 3, 5, 2), ("shared", "shared")),
+    ((2_500, 3, 4, 2), ("shared", "shared")),
+    ((20_000, 3, 5, 2), ("global", "shared")),
+    ((4_096, 3, 600, 3), ("shared", "global")),
+    ((16_384, 3, 1_000, 3), ("global", "global")),
+    ((10_240, 3, 0, 0), ("shared", "none")),
+]
+
+
+@pytest.mark.parametrize("shape,path", _PLANS,
+                         ids=[f"M{p[0][0]}-C{p[0][2]}" for p in _PLANS])
+def test_launch_plan_picks_the_path_by_size(shape, path):
+    M, R, C, K = shape
+    plan = gpu_solver.launch_plan(M, R, C, K)
+    assert (plan.state, plan.bits) == path
+    assert plan.smem_bytes <= gpu_solver.SMEM_LIMIT
+    assert plan.smem_bytes == gpu_solver.smem_bytes(
+        M, R, C, K, plan.state == "shared", plan.bits == "shared")
+    if plan.state == "global":
+        assert gpu_solver.smem_bytes(M, R, C, K, True, False) \
+            > gpu_solver.SMEM_LIMIT
+
+
+def test_smem_layout_mirrors_the_header():
+    """The bytes of place::layout at the serial smoke shape, 512
+    threads: 2 x 8 x 16 reduction keys, 17 block-minimum keys, the
+    2,048-word job chunk, K winners, 10,000 16-byte slot records and 5 x
+    313 bit words, each part rounded up to 16 bytes."""
+    assert gpu_solver.THREADS == 512
+    assert gpu_solver.smem_bytes(10_000, 3, 5, 2, True, True) == (
+        2048 + 144 + 8192 + 16 + 160_000 + 6272)
+    # a record holds R dims and the cost in whole int4s
+    assert gpu_solver.smem_bytes(100, 4, 0, 0, True, False) \
+        - gpu_solver.smem_bytes(100, 4, 0, 0, False, False) == 100 * 32

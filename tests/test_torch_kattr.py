@@ -155,3 +155,16 @@ def test_build_cache_key_covers_every_header(tmp_path, monkeypatch):
     after = {name: build.library_path(name) for name in build.SOURCES}
     assert all(before[k] != after[k] for k in build.SOURCES)
     assert len(set(after.values())) == len(after)
+
+
+@pytest.mark.parametrize("nodes,state", [(10_240, "shared"),
+                                         (20_480, "global")])
+def test_variant_plan_matches_the_serial_kernel(nodes, state):
+    """The variants lay their one block out as greedy_place lays out a
+    serial solve over the same nodes (no class bits); bcast's bound
+    counts its side output at that block's width."""
+    plan = kattr.variant_plan(nodes, R)
+    want = gpu_solver.launch_plan(nodes, R, 0, 0)
+    assert plan == want and plan.state == state and plan.bits == "none"
+    ms_wide = kattr.bound("bcast", 1, nodes, R)[0]
+    assert ms_wide > 0
