@@ -36,8 +36,8 @@ Phases (any failure exits non-zero and prints no result):
    submission between them, once on four disjoint partitions and once
    with an overlapping partition; the kernel's launch count and the
    ledger invariants are checked after every cycle, and each layout's
-   first cycle against the plain version on the batch the scheduler
-   fed the kernel;
+   first cycle against the plain version on the whole batch the
+   scheduler fed the kernel;
 6. the default path: ``JobScheduler(meta, SchedulerConfig())`` at the
    same size on four disjoint partitions, two split backfill cycles, the
    second contended: its top-up adds high-QoS gangs of 8 x 32 CPUs on
@@ -47,9 +47,50 @@ Phases (any failure exits non-zero and prints no result):
    port's time-axis solve on the CPU from the recorded inputs; the
    second cycle backfills and its future starts pend ``Priority`` or
    ``Resource``; the first cycle's tail equals the kernel's plain
-   version on the recorded inputs; the ledger invariants hold after
-   every cycle;
-7. one JSON line describing every kernel, then the card line, then the
+   version on the recorded inputs (every tail job); the ledger
+   invariants hold after every cycle;
+7. topology: a Slurm ``topology.conf`` tree over the same cluster (250
+   leaf switches of 40 nodes under 10 upper switches of 25 leaves; the
+   craneds register in another order than their names).  (a) 100,000
+   single-node candidates under ``SchedulerConfig()``: one split
+   backfill cycle whose tail goes through the greedy kernel on the
+   block-major node axis, launched once, held bitwise against the plain
+   version on the same permuted inputs (every tail job) with the picks
+   mapped back; (b) 10,000 gangs of 2-8 nodes (4-32 CPUs
+   each) through the best-fit-block solve: every in-block gang's nodes
+   share one leaf, spanning gangs are flagged and some exist; in-block/
+   cross counts and the solve's ms and us per job are printed;
+8. packed: 20,000 candidates, 10% packed (4-32 tasks over 1-4 nodes
+   with a per-task request), 2% exclusive, the rest plain, one cycle
+   through the packed solve: every started packed job's task layout
+   sums to ntasks within the per-node bounds, every exclusive job holds
+   whole nodes; solve ms and us per job;
+9. preemption: accounts with QoS ``low``, ``mid`` and ``high`` (may
+   preempt ``low`` only), ``preempt_mode="requeue"``: a cold cycle of
+   100,000 jobs, low everywhere and half of them mid on p3 (mid jobs
+   end within the time axis), then 1,000 high jobs of 24-32 CPUs that
+   do not fit: single-node ones on p0-p2, and gangs of 4-8 on p3, where
+   eviction alone cannot free enough now; once with backfill
+   (``solve_preempt_timed``) and once without (``solve_preempt``).
+   Every eviction happens inside a preemption commit that started its
+   preemptor or as a due deferred claim, every victim pends
+   ``Preempted`` with its requeue count raised at once; with backfill
+   some gangs start in a later bucket, their claims fall due at bucket
+   edges, and a third cycle at the first due time drains them; J, V, M,
+   the what-if's ms and ms per preemptor and
+   ``torch.cuda.max_memory_allocated`` are printed.
+   The routes of 7-9 that have no kernel (the gang solve, the packed
+   solve, both what-ifs) record their inputs on the card and are held
+   bitwise against the same function on the CPU: every job of the gang
+   and packed solves and of the immediate what-if, and the first
+   ``CPU_CHECK_PREEMPTORS`` preemptors of the timed one (at least up to
+   its first future start; a preemptor's decision depends only on
+   those before it).  The ledger invariants hold after every cycle of
+   7-9;
+10. the CPU checks: every plain version and CPU replay above runs in
+   one of ``CPU_WORKERS`` worker processes beside the card's phases;
+   the script waits for all of them and fails on any failure;
+11. one JSON line describing every kernel, then the card line, then the
    result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.  The kernel build goes to
@@ -70,6 +111,25 @@ TOPUP_JOBS = 5_000
 # the contended backfill cycle's high-QoS gangs (8 nodes x 32 CPUs, 10
 # min) on partition p0: 750 at 10,000 nodes, ~80% of p0's CPUs
 BIG_GANGS = N_NODES * 3 // 40
+# the topology phases: leaf switches of 40 nodes under upper switches of
+# 25 leaves (250 leaves, 10 upper switches at 10,000 nodes), and the
+# gang cycle's gangs
+LEAF = 40
+SPINE_LEAVES = 25
+TOPO_GANGS = N_NODES
+# the packed cycle's candidates, and the preemption burst's high-QoS jobs
+PACKED_JOBS = 2 * N_NODES
+PREEMPT_BURST = N_NODES // 10
+# the timed what-if on the CPU takes ~0.1-0.4 s a preemptor at this size
+# (its [M, T, R] steps): it is held against the card on this many
+# preemptors, or up to the first future start if that comes later
+CPU_CHECK_PREEMPTORS = 200
+# the CPU checks (the plain versions of the kernel, the routes' CPU
+# replays: ~10 min of CPU at this size) run in worker processes beside
+# the card's phases, each with 2 threads
+CPU_WORKERS = 4
+# the share of p3's cold jobs in QoS mid, which high may not preempt
+MID_SHARE = 0.5
 # H100 SXM int32 rate: NVIDIA's data sheet gives 67 TFLOP/s float32,
 # counting an FMA as two operations on 128 float32 lanes per SM; an SM
 # has 64 int32 lanes (Hopper architecture white paper), so int32 runs at
@@ -84,6 +144,33 @@ DESIGN = "owned-smem-1barrier"
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+_pool = None
+_checks = {}
+
+
+def _worker_init():
+    import torch
+
+    torch.set_num_threads(2)
+
+
+def cpu_check(label, fn, *args):
+    """Run ``fn(label, *args)`` in a worker process (the pool is started at
+    first use, by 'spawn': the card stays with this process) and keep its
+    future under ``label``; ``main`` waits for every one of them, and
+    fails on any failure, before it prints a result."""
+    global _pool
+    if _pool is None:
+        import concurrent.futures
+        import multiprocessing
+
+        _pool = concurrent.futures.ProcessPoolExecutor(
+            CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_worker_init)
+    check(label not in _checks, f"two CPU checks named {label}")
+    _checks[label] = _pool.submit(fn, label, *args)
 
 
 def cluster_arrays(rng, n):
@@ -109,13 +196,200 @@ def host(*ts):
     return [t.cpu().numpy() for t in ts]
 
 
+def plain_check(label, want, avail, total, alive, cost, batch, jc,
+                rows_np, max_nodes, perm=None):
+    """(A worker's job.)  A recorded greedy solve (inputs as the scheduler
+    handed them to ``_solve_gpu``, outputs ``want`` = host (placed,
+    nodes, reason)) against the kernel's plain version on every job: the
+    same entry point and stream plan on CPU tensors, where it runs
+    ``greedy_place_plain``.  ``perm`` presents the node axis block-major,
+    as the scheduler does under a topology, and maps the picks back.
+    Returns the largest absolute difference (0)."""
+    import torch
+
+    from cranesched_tpu_torch.models import gpu_solver as g
+    from cranesched_tpu_torch.models.solver import make_cluster_state
+
+    avail, cost = (x.numpy() if isinstance(x, torch.Tensor) else x
+                   for x in (avail, cost))
+    if perm is not None:
+        avail, total, alive, cost = (x[perm] for x in (avail, total, alive,
+                                                       cost))
+        rows_np = rows_np[:, perm]
+    t0 = time.perf_counter()
+    state = make_cluster_state(avail, total, alive, cost, device="cpu")
+    plan = g.plan_streams(jc, rows_np)
+    p, _ = g.solve_greedy_gpu_auto(
+        state, *(torch.from_numpy(x) for x in (*batch, jc, rows_np)),
+        max_nodes=max_nodes, plan=plan, class_rows=rows_np)
+    placed, nodes, reason = host(p.placed, p.nodes, p.reason)
+    if perm is not None:
+        nodes = np.where(nodes >= 0, perm[np.maximum(nodes, 0)],
+                         -1).astype(np.int32)
+    err = 0
+    for what, a, b in zip(("placed", "nodes", "reason"), want,
+                          (placed, nodes, reason)):
+        check(a.shape == b.shape and np.array_equal(a, b),
+              f"{label}: {what} differs from the plain version")
+        if a.size:
+            err = max(err, int(np.abs(a.astype(np.int64)
+                                      - b.astype(np.int64)).max()))
+    print(f"[cycle:{label}] == plain version (bitwise, every one of "
+          f"{int(batch[3].sum())} jobs, streams {plan[1] if plan else 1}, "
+          f"plain cpu {time.perf_counter() - t0:.1f}s)", flush=True)
+    return err
+
+
+def to_cpu(x):
+    """A copy on the CPU of a solve's arguments or outputs: tensors,
+    dataclasses of them, tuples, lists and dicts."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().clone()
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: to_cpu(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_cpu(v) for v in x)
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    return x
+
+
+def tensors_of(x, path="out"):
+    """``(path, array)`` for every tensor in ``x``, in a fixed order."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        yield path, x.numpy()
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from tensors_of(getattr(x, f.name), f"{path}.{f.name}")
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            yield from tensors_of(v, f"{path}[{i}]")
+
+
+class Recording:
+    """Within a ``with`` block, every call of the scheduler module's
+    ``name`` (a solve route that has no kernel) records its arguments,
+    copied to the CPU before the call (the solves update their state in
+    place), its outputs and its arguments after it, and the copies'
+    ms."""
+
+    def __init__(self, name):
+        from cranesched_tpu_torch.ctld import scheduler
+
+        self.module, self.name = scheduler, name
+        self.fn = getattr(scheduler, name)
+        self.calls = []
+
+    def __enter__(self):
+        def spy(*args, **kwargs):
+            t0 = time.perf_counter()
+            inputs = to_cpu((args, kwargs))
+            t1 = time.perf_counter()
+            out = self.fn(*args, **kwargs)
+            t2 = time.perf_counter()
+            self.calls.append({"in": inputs, "out": to_cpu(out),
+                               "after": to_cpu(args), "copy_ms": (
+                                   t1 - t0 + time.perf_counter() - t2) * 1e3})
+            return out
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def route_vs_cpu(label, fn, call, jobs_arg, per_job, cut=None):
+    """(A worker's job.)  A recorded call of a route on the card against
+    ``fn`` on the CPU from the same inputs, bitwise.  ``cut`` keeps the
+    first ``cut`` jobs of the batch at positional argument ``jobs_arg`` (a
+    job's result depends only on those before it); then only the per-job
+    outputs (the elements ``per_job`` of the output tuple) are compared,
+    on those jobs, and without a cut every output and every argument
+    after the call (the state the solve updates in place).  Returns
+    ``(jobs compared, CPU seconds)``."""
+    import dataclasses
+
+    args, kwargs = to_cpu(call["in"])     # the recording stays as it was
+    args = list(args)
+    batch = args[jobs_arg]
+    J = getattr(batch, dataclasses.fields(batch)[0].name).shape[0]
+    if cut is not None and cut >= J:
+        cut = None
+    if cut is not None:
+        args[jobs_arg] = dataclasses.replace(batch, **{
+            f.name: getattr(batch, f.name)[:cut]
+            for f in dataclasses.fields(batch)})
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    cpu_s = time.perf_counter() - t0
+    want, got = call["out"], out
+    if cut is None:
+        want, got = (*want, call["after"]), (*got, tuple(args))
+    n = 0
+    for i in (range(len(want)) if cut is None else per_job):
+        for (path, a), (_, b) in zip(tensors_of(want[i], f"out[{i}]"),
+                                     tensors_of(got[i], f"out[{i}]")):
+            a = a if cut is None else a[:cut]
+            check(a.shape == b.shape and a.dtype == b.dtype
+                  and np.array_equal(a, b),
+                  f"{label}: {path} on the card differs from the CPU")
+            n += 1
+    jobs = J if cut is None else cut
+    print(f"[cycle:{label}] {fn.__name__} on the card == on the CPU "
+          f"(bitwise, {n} outputs, {jobs} of {J} jobs"
+          f"{'' if cut is None else ', per-job outputs'}, cpu "
+          f"{cpu_s:.1f}s, recording {call['copy_ms']:.0f} ms)", flush=True)
+    return jobs, cpu_s
+
+
+def kernel_plain_check(label, k_out, jobs_t, nelig, elig, cpu_total, avail,
+                       cost, K, slot):
+    """(A worker's job.)  The kernel's outputs ``k_out`` (placed, nodes,
+    reason, avail, cost) against its plain version on the CPU, from the
+    same kernel inputs; bitwise.  Returns ``(max_abs_err, plain
+    seconds)``."""
+    from cranesched_tpu_torch.models import gpu_solver as g
+
+    t0 = time.perf_counter()
+    placed, reason, chosen = g.greedy_place_plain(
+        jobs_t, nelig, elig, cpu_total, avail, cost, K)
+    plain_s = time.perf_counter() - t0
+    p_out = [x.numpy() for x in (
+        placed.reshape(-1)[slot] != 0, chosen.reshape(-1, K)[slot],
+        reason.reshape(-1)[slot], avail, cost)]
+    err = 0
+    for what, a, b in zip(("placed", "nodes", "reason", "avail", "cost"),
+                          k_out, p_out):
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{label}: {what} shape/dtype {a.shape}/{a.dtype} vs "
+              f"{b.shape}/{b.dtype}")
+        check(np.array_equal(a, b), f"{label}: {what} differs from plain")
+        if a.size:
+            err = max(err, int(np.abs(a.astype(np.int64)
+                                      - b.astype(np.int64)).max()))
+    print(f"[kernel-vs-plain] {label}: bitwise=True plain_cpu_s="
+          f"{plain_s:.3f}", flush=True)
+    return err, plain_s
+
+
 def kernel_vs_plain(name, total, alive, cost, jobs, job_class, masks,
                     max_nodes, expect_streams, timed=False, expect_path=None):
-    """One solve through the entry point on the card and through the
-    plain version on the CPU, from the same inputs; bitwise equal.
-    ``expect_path`` ``(state, bits)`` checks where the launch plan put
-    the owned state and the class bits.  Returns the kernel-level
-    measurements; ``timed`` adds the kernel's time."""
+    """One solve through the entry point on the card; its outputs go with
+    the kernel's inputs to a worker that holds them bitwise against the
+    plain version on the CPU (``kernel_plain_check``, under the label
+    ``kernel <name>``).  ``expect_path`` ``(state, bits)`` checks where
+    the launch plan put the owned state and the class bits.  Returns the
+    kernel-level measurements; ``timed`` adds the kernel's time."""
     import torch
 
     from cranesched_tpu_torch.models import gpu_solver as g
@@ -146,33 +420,15 @@ def kernel_vs_plain(name, total, alive, cost, jobs, job_class, masks,
     if expect_path is not None:
         check((lp.state, lp.bits) == expect_path,
               f"{name}: plan {lp}, expected state/bits {expect_path}")
-    avail_c, cost_c = fresh.avail.cpu(), fresh.cost.cpu()
-    t0 = time.perf_counter()
-    placed, reason, chosen = g.greedy_place_plain(
-        jobs_t.cpu(), nelig.cpu(), elig.cpu(), cpu_total.cpu(), avail_c,
-        cost_c, K)
-    plain_s = time.perf_counter() - t0
-    sl = slot.cpu()
-    p_out = [x.numpy() for x in (
-        placed.reshape(-1)[sl] != 0, chosen.reshape(-1, K)[sl],
-        reason.reshape(-1)[sl], avail_c, cost_c)]
-    err = 0
-    for what, a, b in zip(("placed", "nodes", "reason", "avail", "cost"),
-                          k_out, p_out):
-        check(a.shape == b.shape and a.dtype == b.dtype,
-              f"{name}: {what} shape/dtype {a.shape}/{a.dtype} vs "
-              f"{b.shape}/{b.dtype}")
-        check(np.array_equal(a, b), f"{name}: {what} differs from plain")
-        if a.size:
-            err = max(err, int(np.abs(a.astype(np.int64)
-                                      - b.astype(np.int64)).max()))
+    cpu_check(f"kernel {name}", kernel_plain_check, k_out,
+              *to_cpu((jobs_t, nelig, elig, cpu_total, fresh.avail,
+                       fresh.cost)), K, slot.cpu())
     print(f"[kernel-vs-plain] {name}: J={len(req)} N={len(total)} "
           f"C={masks.shape[0]} K={K} streams={streams} owned={M} "
           f"threads={g.THREADS} smem_bytes={lp.smem_bytes} "
           f"state={lp.state} bits={lp.bits} "
-          f"placed={int(k_out[0].sum())} bitwise=True "
-          f"plain_cpu_s={plain_s:.3f}", flush=True)
-    out = {"max_abs_err": err, "plain_s": plain_s, "streams": streams,
+          f"placed={int(k_out[0].sum())}", flush=True)
+    out = {"check": f"kernel {name}", "streams": streams,
            "K": K, "J": len(req), "C": int(masks.shape[0]), "owned": M,
            "threads": g.THREADS, "smem_bytes": lp.smem_bytes,
            "state": lp.state, "bits": lp.bits}
@@ -212,8 +468,7 @@ def kernel_vs_plain(name, total, alive, cost, jobs, job_class, masks,
     print(f"[kernel-time] {name}: kernel_ms={out['ms']:.3f} "
           f"runs={[round(t, 3) for t in times]} threads={g.THREADS} "
           f"smem_bytes={lp.smem_bytes} state={lp.state} bits={lp.bits} "
-          f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']}) "
-          f"plain_cpu_ms={plain_s * 1e3:.1f}", flush=True)
+          f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']})", flush=True)
     return out
 
 
@@ -424,12 +679,55 @@ def check_ledger(sched, label, resident=True):
           f"{label}: device-resident avail differs from the host ledger")
 
 
-def build_cell(rng, overlap: bool, config):
+def topology_spec(n):
+    """A Slurm ``topology.conf`` tree as the ``Topology:`` section: leaf
+    switches of ``LEAF`` nodes (``b[00000-00039]``, ...) under upper
+    switches of ``SPINE_LEAVES`` leaves (250 leaves under 10 switches at
+    10,000 nodes)."""
+    leaves = -(-n // LEAF)
+    return {
+        "Blocks": [{"name": f"leaf{b:03d}", "nodes": "b[%05d-%05d]" % (
+            LEAF * b, min(LEAF * b + LEAF, n) - 1)} for b in range(leaves)],
+        "Switches": [{"name": f"spine{s}", "blocks": [
+            f"leaf{b:03d}" for b in range(SPINE_LEAVES * s,
+                                          min(SPINE_LEAVES * (s + 1),
+                                              leaves))]}
+            for s in range(-(-leaves // SPINE_LEAVES))],
+    }
+
+
+def qos_accounts():
+    """Accounts for the preemption phase: QoS ``low`` (priority 0),
+    ``mid`` (priority 500) and ``high`` (priority 1,000, may preempt
+    ``low`` only), user alice in hpc."""
+    from cranesched_tpu_torch.ctld.accounting import (
+        Account,
+        AccountManager,
+        AdminLevel,
+        Qos,
+        User,
+    )
+
+    mgr = AccountManager()
+    mgr.users["root"] = User(name="root", admin_level=AdminLevel.ROOT)
+    mgr.add_qos("root", Qos(name="low", priority=0))
+    mgr.add_qos("root", Qos(name="mid", priority=500))
+    mgr.add_qos("root", Qos(name="high", priority=1000, preempt={"low"}))
+    mgr.add_account("root", Account(name="hpc",
+                                    allowed_qos={"low", "mid", "high"},
+                                    default_qos="low"))
+    mgr.add_user("root", User(name="alice", uid=1), "hpc")
+    return mgr
+
+
+def build_cell(rng, overlap: bool, config, topology=False, accounts=None):
     """``N_NODES`` nodes (cpu 32-128, mem 64-512 GiB) in partitions
     ``p0..p3`` (plus ``all`` over every node with ``overlap``), a
     ``JobScheduler`` with ``config`` on the card and a ``SimCluster``;
     returns ``(sched, sim, submit)`` with ``submit(k, now)`` adding k
-    jobs as bench.py draws them."""
+    jobs as bench.py draws them.  ``topology`` attaches
+    ``topology_spec``'s tree; ``accounts`` goes to the scheduler and
+    ``submit`` then takes the QoS (``qos=``)."""
     from cranesched_tpu_torch.craned.sim import SimCluster
     from cranesched_tpu_torch.ctld import (
         JobScheduler,
@@ -439,18 +737,30 @@ def build_cell(rng, overlap: bool, config):
     )
 
     meta = MetaContainer()
+    # under a topology the craneds register in another order than their
+    # names (and so than the leaf switches' hostlists): the block-major
+    # permutation is not the identity
+    names = (np.random.default_rng(7).permutation(N_NODES) if topology
+             else np.arange(N_NODES))
     for i in range(N_NODES):
         parts = (f"p{i % 4}",) + (("all",) if overlap else ())
-        meta.add_node(f"b{i:05d}", meta.layout.encode(
+        meta.add_node(f"b{names[i]:05d}", meta.layout.encode(
             cpu=float(rng.integers(32, 129)),
             mem_bytes=int(rng.integers(64, 513)) << 30, is_capacity=True),
             partitions=parts)
         meta.craned_up(i)
-    sched = JobScheduler(meta, config, device=DEVICE)
+    if topology:
+        from cranesched_tpu_torch.topo import Topology
+
+        meta.set_topology(Topology.from_config(
+            topology_spec(N_NODES), num_nodes=N_NODES,
+            name_to_id={f"b{names[i]:05d}": i for i in range(N_NODES)}))
+    sched = JobScheduler(meta, config, device=DEVICE, accounts=accounts)
     sim = SimCluster(sched)
     sim.wire(sched)
 
-    def submit(k, now):
+    def submit(k, now, max_gang=2, qos=""):
+        user = dict(user="alice", account="hpc", qos=qos) if qos else {}
         for _ in range(k):
             part = f"p{rng.integers(0, 4)}"
             if overlap and rng.random() < 0.1:
@@ -459,21 +769,18 @@ def build_cell(rng, overlap: bool, config):
             check(sched.submit(JobSpec(
                 res=ResourceSpec(cpu=float(rng.integers(1, 17)),
                                  mem_bytes=int(rng.integers(1, 33)) << 30),
-                node_num=int(rng.integers(1, 3)), time_limit=tl,
+                node_num=int(rng.integers(1, max_gang + 1)), time_limit=tl,
                 partition=part,
-                sim_runtime=float(rng.integers(30, 1800))), now=now) > 0,
-                "submit rejected")
+                sim_runtime=float(rng.integers(30, 1800)), **user),
+                now=now) > 0, "submit rejected")
 
     return sched, sim, submit
 
 
 def phase_cycle(overlap: bool):
     """The immediate-fit path at the north-star size; returns per-cycle
-    stats.  The first cycle is held against the plain version (~1 min of
-    CPU)."""
-    import torch
-
-    from cranesched_tpu_torch import convert
+    stats.  The first cycle is held against the plain version on the
+    card."""
     from cranesched_tpu_torch.ctld import SchedulerConfig
     from cranesched_tpu_torch.models import gpu_solver as g
 
@@ -541,25 +848,10 @@ def phase_cycle(overlap: bool):
     check(launches == len(rows),
           f"{label}: {launches} launches for {len(rows)} solved cycles")
 
-    # the first cycle against the plain version on the same snapshot
-    # and batch, through the same entry point on the CPU
-    (avail, total, alive, cost0, (req, nn, tl, valid), jc, rows_np,
-     max_nodes) = record["in"]
-    state = convert.cluster_state(avail, total, alive, cost0, device="cpu")
-    t2 = time.perf_counter()
-    plan = g.plan_streams(jc, rows_np)
-    p, _ = g.solve_greedy_gpu_auto(
-        state, torch.from_numpy(req), torch.from_numpy(nn),
-        torch.from_numpy(tl), torch.from_numpy(valid),
-        torch.from_numpy(jc), torch.from_numpy(rows_np),
-        max_nodes=max_nodes, plan=plan, class_rows=rows_np)
-    for what, a, b in zip(("placed", "nodes", "reason"), record["out"],
-                          host(p.placed, p.nodes, p.reason)):
-        check(np.array_equal(a, b),
-              f"{label}: first cycle {what} differs from plain")
-    print(f"[cycle:{label}] first cycle == plain version (bitwise, "
-          f"{len(req)} jobs, plain {time.perf_counter() - t2:.1f}s)",
-          flush=True)
+    # the first cycle against the plain version on the same snapshot and
+    # batch
+    cpu_check(f"{label} first cycle", plain_check, record["out"],
+              *record["in"])
     return rows, launches
 
 
@@ -568,8 +860,6 @@ def phase_backfill():
     backfill cycles on four disjoint partitions, the second contended by
     ``BIG_GANGS`` high-QoS gangs on p0; returns per-cycle stats and the
     kernel's launch count."""
-    import torch
-
     from cranesched_tpu_torch.ctld import (
         JobSpec,
         PendingReason,
@@ -578,7 +868,6 @@ def phase_backfill():
     )
     from cranesched_tpu_torch.models import gpu_solver as g
     from cranesched_tpu_torch.models import solver_time as st
-    from cranesched_tpu_torch.models.solver import make_cluster_state
 
     label = "backfill"
     rng = np.random.default_rng(2)
@@ -724,27 +1013,425 @@ def phase_backfill():
               f"{time.perf_counter() - t2:.1f}s)", flush=True)
 
     # the first cycle's tail against the kernel's plain version
-    (avail, total, alive, cost, (req, nn, tl, valid), jc, rows_np,
-     max_nodes) = record["tail_in"]
-    tstate = make_cluster_state(avail, total, alive, cost, device="cpu")
-    t3 = time.perf_counter()
-    plan = g.plan_streams(jc, rows_np, known_disjoint=True)
-    p, _ = g.solve_greedy_gpu_auto(
-        tstate, torch.from_numpy(req), torch.from_numpy(nn),
-        torch.from_numpy(tl), torch.from_numpy(valid),
-        torch.from_numpy(jc), torch.from_numpy(rows_np),
-        max_nodes=max_nodes, plan=plan, class_rows=rows_np)
-    for what, a, b in zip(("placed", "nodes", "reason"), record["tail_out"],
-                          host(p.placed, p.nodes, p.reason)):
-        check(np.array_equal(a, b),
-              f"{label}: first tail {what} differs from plain")
-    print(f"[cycle:{label}] first tail == plain version (bitwise, "
-          f"{int(valid.sum())} jobs, plain {time.perf_counter() - t3:.1f}s)",
-          flush=True)
+    cpu_check(f"{label} first tail", plain_check, record["tail_out"],
+              *record["tail_in"])
     return rows, launches
 
 
+def cycle_once(sched, now, label):
+    """One cycle, timed on the host; returns ``(started, last_cycle)``
+    with the wall time, and prints the stats line."""
+    t1 = time.perf_counter()
+    started = sched.schedule_cycle(now=now)
+    wall = time.perf_counter() - t1
+    last = dict(sched.stats["last_cycle"], placed=len(started), wall_s=wall)
+    print(f"[cycle:{label}] placed {len(started)} wall {wall:.3f}s stats "
+          f"{json.dumps(last)}", flush=True)
+    return started, last
+
+
+def phase_topo_single():
+    """The default configuration under a topology: 100,000 single-node
+    candidates, one split backfill cycle whose tail goes through the
+    greedy kernel on the block-major node axis; the launch is held
+    bitwise against the plain version on the same permuted inputs, the
+    picks mapped back to real node ids."""
+    from cranesched_tpu_torch.ctld import SchedulerConfig
+    from cranesched_tpu_torch.models import gpu_solver as g
+
+    label = "topo-single"
+    rng = np.random.default_rng(3)
+    t0 = time.perf_counter()
+    sched, sim, submit = build_cell(rng, False, SchedulerConfig(),
+                                    topology=True)
+    topo = sched.meta.topology
+    check(not (topo.perm == np.arange(N_NODES)).all(),
+          "the block-major permutation is the identity")
+    submit(N_JOBS, 0.0, max_gang=1)
+    print(f"[cycle:{label}] setup {time.perf_counter() - t0:.1f}s "
+          f"({N_NODES} nodes, {topo.num_blocks} leaves, "
+          f"{len(topo.upper_levels[0][1])} upper switches, "
+          f"{len(sched.pending)} pending)", flush=True)
+    record = {}
+    solve = sched._solve_gpu
+
+    def spy(avail, total, alive, cost, batch, max_nodes, resident_ok=False):
+        record["in"] = (avail.cpu().clone(), total.copy(), alive.copy(),
+                        cost.cpu().clone(), host(batch.req, batch.node_num,
+                                                 batch.time_limit,
+                                                 batch.valid),
+                        batch.job_class_np.copy(),
+                        batch.class_rows_np.copy(), max_nodes)
+        out = solve(avail, total, alive, cost, batch, max_nodes,
+                    resident_ok=resident_ok)
+        record["out"] = host(out[0].placed, out[0].nodes, out[0].reason)
+        return out
+
+    sched._solve_gpu = spy
+    # the main path's launch count: zeroed just before, read just after
+    g.greedy_place.launches = 0
+    started, last = cycle_once(sched, 100.0, label)
+    launches = g.greedy_place.launches
+    check(launches == 1, f"{label}: kernel launched {launches} times")
+    check(last["solver"] == "backfill-split",
+          f"{label}: solver {last['solver']}")
+    check(len(started) > 0, f"{label}: placed nothing")
+    check_ledger(sched, label, resident=False)
+
+    # the permuted launch against the plain version on the same inputs
+    cpu_check(f"{label} permuted tail", plain_check, record["out"],
+              *record["in"], topo.perm)
+    last.update(cycle=0)
+    return [last], launches
+
+
+def phase_topo_gangs():
+    """Gangs of 2-8 nodes under the topology: one cycle through the
+    best-fit-block solve (``solve_greedy_topo``, route ``topo``)."""
+    from cranesched_tpu_torch.ctld import JobSpec, ResourceSpec
+    from cranesched_tpu_torch.ctld import SchedulerConfig
+    from cranesched_tpu_torch.models import gpu_solver as g
+    from cranesched_tpu_torch.topo.place import solve_greedy_topo
+
+    label = "topo-gangs"
+    rng = np.random.default_rng(4)
+    t0 = time.perf_counter()
+    sched, sim, _ = build_cell(rng, False, SchedulerConfig(), topology=True)
+    topo = sched.meta.topology
+    for _ in range(TOPO_GANGS):
+        check(sched.submit(JobSpec(
+            res=ResourceSpec(cpu=float(rng.integers(4, 33)),
+                             mem_bytes=int(rng.integers(1, 33)) << 30),
+            node_num=int(rng.integers(2, 9)),
+            time_limit=int(rng.integers(60, 86400)),
+            partition=f"p{rng.integers(0, 4)}",
+            sim_runtime=float(rng.integers(30, 1800))), now=0.0) > 0,
+            "submit rejected")
+    print(f"[cycle:{label}] setup {time.perf_counter() - t0:.1f}s "
+          f"({len(sched.pending)} gangs)", flush=True)
+    before = g.greedy_place.launches
+    with Recording("solve_greedy_topo") as rec:
+        started, last = cycle_once(sched, 100.0, label)
+    check(g.greedy_place.launches == before,
+          f"{label}: the gang cycle launched the greedy kernel")
+    check(len(rec.calls) == 1, f"{label}: {len(rec.calls)} gang solves")
+    check(last["solver"] == "topo", f"{label}: solver {last['solver']}")
+    check(len(started) > 0, f"{label}: placed nothing")
+    check_ledger(sched, label, resident=False)
+    leaf = topo.block_of_node
+    n_in = n_cross = 0
+    for jid in started:
+        job = sched.running[jid]
+        leaves = {int(leaf[n]) for n in job.node_ids}
+        if job.cross_block:
+            n_cross += 1
+            check(job.topo_block == "spanning",
+                  f"{label}: cross gang {jid} block {job.topo_block!r}")
+        else:
+            n_in += 1
+            check(len(leaves) == 1 and leaves != {-1}
+                  and job.topo_block == topo.block_names[leaves.pop()],
+                  f"{label}: in-block gang {jid} spans leaves")
+    check((n_in, n_cross) == (last["topo_in_block"], last["topo_cross"]),
+          f"{label}: in-block/cross counts differ from the trace")
+    check(n_cross > 0, f"{label}: no gang took the spanning fallback")
+    # the solve's time without the recording's copies
+    ms = last["solve_ms"] - rec.calls[0]["copy_ms"]
+    us = ms * 1e3 / max(last["pending"], 1)
+    print(f"[cycle:{label}] {last['pending']} gangs: in-block {n_in}, "
+          f"cross {n_cross}, unplaced {last['pending'] - len(started)}; "
+          f"solve {ms:.1f} ms = {us:.1f} us/job; leaf "
+          f"fragmentation {last['topo_frag']}", flush=True)
+    cpu_check(label, route_vs_cpu, solve_greedy_topo, rec.calls[0], 1,
+              (0, 2))
+    last.update(cycle=0, us_per_job=us, route_ms=ms)
+    return [last]
+
+
+def phase_packed():
+    """~``PACKED_JOBS`` candidates on ``N_NODES`` nodes, 10% packed
+    (ntasks 4-32 over 1-4 nodes with a per-task request), 2% exclusive,
+    the rest plain: one cycle through the packed solve."""
+    from cranesched_tpu_torch.ctld import JobSpec, ResourceSpec
+    from cranesched_tpu_torch.ctld import SchedulerConfig
+    from cranesched_tpu_torch.models.packing import solve_packed
+
+    label = "packed"
+    rng = np.random.default_rng(5)
+    t0 = time.perf_counter()
+    sched, sim, _ = build_cell(rng, False, SchedulerConfig())
+    kinds = {"packed": 0, "exclusive": 0, "plain": 0}
+    for _ in range(PACKED_JOBS):
+        u = rng.random()
+        nn = int(rng.integers(1, 5)) if u < 0.12 else int(rng.integers(1, 3))
+        shape = {}
+        if u < 0.10:
+            ntasks = int(rng.integers(max(4, nn), 33))
+            shape = dict(task_res=ResourceSpec(
+                cpu=float(rng.integers(1, 5)) / 2, mem_bytes=1 << 30),
+                ntasks=ntasks,
+                ntasks_per_node_max=-(-ntasks // nn) + int(rng.integers(0, 4)))
+            kinds["packed"] += 1
+        elif u < 0.12:
+            shape = dict(exclusive=True)
+            kinds["exclusive"] += 1
+        else:
+            kinds["plain"] += 1
+        check(sched.submit(JobSpec(
+            res=ResourceSpec(cpu=float(rng.integers(1, 9)),
+                             mem_bytes=int(rng.integers(1, 17)) << 30),
+            node_num=nn, time_limit=int(rng.integers(60, 86400)),
+            partition=f"p{rng.integers(0, 4)}",
+            sim_runtime=float(rng.integers(30, 1800)), **shape),
+            now=0.0) > 0, "submit rejected")
+    print(f"[cycle:{label}] setup {time.perf_counter() - t0:.1f}s "
+          f"({len(sched.pending)} pending: {kinds})", flush=True)
+    with Recording("solve_packed") as rec:
+        started, last = cycle_once(sched, 100.0, label)
+    check(last["solver"] == "packed", f"{label}: solver {last['solver']}")
+    check(len(rec.calls) == 1, f"{label}: {len(rec.calls)} packed solves")
+    check(len(started) > 0, f"{label}: placed nothing")
+    check_ledger(sched, label, resident=False)
+    meta = sched.meta
+    got = {"packed": 0, "exclusive": 0}
+    for jid in started:
+        job = sched.running[jid]
+        spec = job.spec
+        if spec.task_res is not None:
+            got["packed"] += 1
+            check(len(job.task_layout) == spec.node_num
+                  and sum(job.task_layout) == spec.ntasks
+                  and all(spec.ntasks_per_node_min <= t
+                          <= spec.ntasks_per_node_max
+                          for t in job.task_layout),
+                  f"{label}: job {jid} task layout {job.task_layout}")
+        if spec.exclusive:
+            got["exclusive"] += 1
+            for n, a in zip(job.node_ids, sched._job_alloc(job)):
+                check((a == meta.nodes[n].total).all()
+                      and (meta.nodes[n].avail == 0).all(),
+                      f"{label}: exclusive job {jid} does not hold node {n}")
+    check(got["packed"] > 0 and got["exclusive"] > 0,
+          f"{label}: started {got}")
+    # the solve's time without the recording's copies
+    ms = last["solve_ms"] - rec.calls[0]["copy_ms"]
+    us = ms * 1e3 / max(last["pending"], 1)
+    print(f"[cycle:{label}] started {len(started)} of {last['pending']} "
+          f"({got}); solve {ms:.1f} ms = {us:.1f} us/job", flush=True)
+    cpu_check(label, route_vs_cpu, solve_packed, rec.calls[0], 1, (0,))
+    last.update(cycle=0, us_per_job=us, route_ms=ms, started_kinds=got)
+    return [last]
+
+
+def phase_preempt(backfill: bool):
+    """QoS preemption in ``preempt_mode="requeue"``: a cold cycle of
+    ``N_JOBS`` jobs (QoS low, and on p3 a ``MID_SHARE`` of QoS mid that
+    ends within the time axis), then a burst of ``PREEMPT_BURST``
+    high-QoS jobs that do not fit: single-node ones on p0-p2, gangs of
+    4-8 on p3, where evicting the low jobs alone cannot free enough now.
+    With backfill the what-if is ``solve_preempt_timed``: some gangs
+    start at a later bucket with their evictions deferred to its edge,
+    and a third cycle at the first due time drains those claims; without
+    backfill it is ``solve_preempt``."""
+    import torch
+
+    from cranesched_tpu_torch.ctld import (
+        JobSpec,
+        JobStatus,
+        PendingReason,
+        ResourceSpec,
+        SchedulerConfig,
+    )
+    from cranesched_tpu_torch.models import gpu_solver as g
+    from cranesched_tpu_torch.models.preempt import solve_preempt
+    from cranesched_tpu_torch.models.preempt_time import solve_preempt_timed
+
+    label = "preempt-" + ("timed" if backfill else "now")
+    rng = np.random.default_rng(6)
+    t0 = time.perf_counter()
+    sched, sim, _ = build_cell(
+        rng, False, SchedulerConfig(backfill=backfill,
+                                    preempt_mode="requeue"),
+        accounts=qos_accounts())
+
+    def submit(qos, part, cpu, node_num, time_limit, runtime, now):
+        jid = sched.submit(JobSpec(
+            user="alice", account="hpc", qos=qos,
+            res=ResourceSpec(cpu=float(cpu),
+                             mem_bytes=int(rng.integers(1, 33)) << 30),
+            node_num=node_num, time_limit=time_limit, partition=f"p{part}",
+            sim_runtime=float(runtime)), now=now)
+        check(jid > 0, "submit rejected")
+        return jid
+
+    # low jobs run 3,900 s or more, past every claim's due time (the time
+    # axis is 64 buckets of 60 s); mid jobs end within 2,400 s
+    kinds = {"low": 0, "mid": 0}
+    for _ in range(N_JOBS):
+        part = int(rng.integers(0, 4))
+        cpu, nn = rng.integers(1, 17), int(rng.integers(1, 3))
+        if part == 3 and rng.random() < MID_SHARE:
+            tl = int(rng.integers(600, 2401))
+            submit("mid", part, cpu, nn, tl, tl, 0.0)
+            kinds["mid"] += 1
+        else:
+            tl = int(rng.integers(4000, 86401))
+            submit("low", part, cpu, nn, tl,
+                   min(tl, int(rng.integers(3900, 7201))), 0.0)
+            kinds["low"] += 1
+    print(f"[cycle:{label}] setup {time.perf_counter() - t0:.1f}s "
+          f"({len(sched.pending)} pending: {kinds})", flush=True)
+    g.greedy_place.launches = 0
+    started0, last0 = cycle_once(sched, 100.0, label)
+    check(len(started0) > 0, f"{label}: cold cycle placed nothing")
+    check(last0["preempted"] == 0, f"{label}: cold cycle preempted")
+    check_ledger(sched, f"{label} cold", resident=False)
+
+    high = [submit("high", 3 if gang else int(rng.integers(0, 3)),
+                   rng.integers(24, 33),
+                   int(rng.integers(4, 9)) if gang else 1,
+                   int(rng.integers(300, 3600)), int(rng.integers(60, 1800)),
+                   110.0)
+            for gang in (i % 5 == 0 for i in range(PREEMPT_BURST))]
+    running0 = set(sched.running)
+    # every eviction happens inside a preemption commit that started its
+    # preemptor, or in the prelude's drain as a claim that fell due; the
+    # victim pends Preempted with its requeue count raised at once
+    events = {"evicted": [], "drained": [], "bad": [], "owner": None,
+              "claims": {}}
+    evict, commit = sched._evict, sched._commit_preemption
+    drain = sched._drain_deferred_evictions
+
+    def spy_evict(victim_id, now):
+        owner, job = events["owner"], sched.running.get(victim_id)
+        count = job.requeue_count if job is not None else -1
+        if owner is None:
+            events["bad"].append(victim_id)
+        elif owner == "drain":
+            if events["claims"].get(victim_id, (np.inf,))[0] > now:
+                events["bad"].append(victim_id)
+            events["drained"].append(victim_id)
+        evict(victim_id, now)
+        job = sched.pending.get(victim_id)
+        if (job is None or job.status != JobStatus.PENDING
+                or job.pending_reason != PendingReason.PREEMPTED
+                or job.requeue_count != count + 1):
+            events["bad"].append(victim_id)
+        events["evicted"].append(victim_id)
+
+    def spy_commit(job, chosen, evict_ids, layout, now):
+        events["owner"] = job.job_id
+        try:
+            ok = commit(job, chosen, evict_ids, layout, now)
+        finally:
+            events["owner"] = None
+        if not ok and evict_ids and set(evict_ids) & set(events["evicted"]):
+            events["bad"].append(job.job_id)
+        return ok
+
+    def spy_drain(now):
+        events["owner"] = "drain"
+        events["claims"] = dict(sched._deferred_evictions)
+        try:
+            drain(now)
+        finally:
+            events["owner"] = None
+
+    sched._evict, sched._commit_preemption = spy_evict, spy_commit
+    sched._drain_deferred_evictions = spy_drain
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    solve = solve_preempt_timed if backfill else solve_preempt
+    with Recording(solve.__name__) as rec:
+        started1, last1 = cycle_once(sched, 120.0, label)
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    check(len(rec.calls) == 1, f"{label}: {len(rec.calls)} what-ifs")
+    check(not events["bad"],
+          f"{label}: evictions outside a started preemption, or victims "
+          f"not requeued Preempted: {events['bad']}")
+    evicted = list(events["evicted"])
+    check(len(evicted) == last1["preempted"] > 0,
+          f"{label}: {len(evicted)} evictions, trace {last1['preempted']}")
+    check(set(evicted) <= running0, f"{label}: evicted a job not running")
+    started_high = [j for j in started1 if j in set(high)]
+    check(started_high, f"{label}: no high-QoS job started")
+    claims = dict(sched._deferred_evictions)
+    edges = set(sched._grid.edges.tolist())
+    for vid, (due, pre) in claims.items():
+        check(vid in sched.running and pre in sched.pending
+              and (due - 120.0) in edges,
+              f"{label}: claim {vid} -> {pre} due {due} off a bucket edge")
+    check_ledger(sched, f"{label} burst", resident=False)
+    J, V, M = last1["preempt_shape"]
+    # the what-if's time without the recording's copies
+    ms = last1["preempt_solve_ms"] - rec.calls[0]["copy_ms"]
+    decisions = rec.calls[0]["out"][0]
+    n_future, cut = 0, None
+    if backfill:
+        future = np.flatnonzero(decisions.placed.numpy()
+                                & (decisions.start_bucket.numpy() > 0))
+        n_future = len(future)
+        check(n_future > 0 and claims,
+              f"{label}: no future start deferred an eviction "
+              f"({n_future} future starts, {len(claims)} claims)")
+        cut = max(CPU_CHECK_PREEMPTORS, int(future[0]) + 1)
+    print(f"[cycle:{label}] burst: J={J} V={V} M={M} solve {ms:.1f} ms = "
+          f"{ms / max(J, 1):.3f} ms/preemptor (inputs "
+          f"{last1['preempt_inputs_ms']:.1f} ms); evicted {len(evicted)}, "
+          f"high started {len(started_high)} of {len(high)}, future starts "
+          f"{n_future}, deferred claims {len(claims)} (victims) for "
+          f"{len({p for _, p in claims.values()})} preemptors; "
+          f"max_memory_allocated {peak / 2**20:.1f} MiB", flush=True)
+    # the what-if against the same function on the CPU: all of it, or
+    # the timed one's first preemptors, up to its first future start
+    cpu_check(label, route_vs_cpu, solve, rec.calls[0], 5, (0,), cut)
+    last1.update(cycle=1, evicted=len(evicted), claims=len(claims),
+                 future_starts=n_future, high_started=len(started_high),
+                 max_memory_bytes=peak, route_ms=ms,
+                 ms_per_preemptor=ms / max(J, 1))
+    last0.update(cycle=0)
+    rows = [last0, last1]
+
+    if backfill:
+        # the first claims fall due: the next cycle's prelude evicts their
+        # victims before the solve
+        due = min(d for d, _ in claims.values())
+        done = sim.advance_to(due)
+        started2, last2 = cycle_once(sched, due, label)
+        drained = events["drained"]
+        check(not events["bad"], f"{label}: bad evictions {events['bad']}")
+        check(drained and set(drained) <= {
+            v for v, (d, _) in claims.items() if d <= due},
+            f"{label}: drained {drained} at {due}")
+        check(all(d > due for d, _ in sched._deferred_evictions.values()),
+              f"{label}: a claim due by {due} survived the drain")
+        check_ledger(sched, f"{label} drain", resident=False)
+        owners = {claims[v][1] for v in drained}
+        print(f"[cycle:{label}] drain at t={due} ({done} completions): "
+              f"{len(drained)} claimed victims evicted for {len(owners)} "
+              f"preemptors, of which {len(owners & set(sched.running))} "
+              f"now run; {len(sched._deferred_evictions)} claims left",
+              flush=True)
+        last2.update(cycle=2, drained=len(drained))
+        rows.append(last2)
+    # one launch a cycle that runs the greedy kernel (immediate, or a
+    # split backfill cycle's tail)
+    want = sum(last["solver"] in ("cuda", "cuda-stream", "backfill-split")
+               for last in rows)
+    check(g.greedy_place.launches == want,
+          f"{label}: {g.greedy_place.launches} kernel launches, want {want}")
+    return rows, g.greedy_place.launches
+
+
 def main() -> int:
+    try:
+        return run()
+    finally:
+        if _pool is not None:
+            _pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run() -> int:
     t_start = time.perf_counter()
     import torch
 
@@ -771,28 +1458,54 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[phase] {name} {time.perf_counter() - t0:.1f}s", flush=True)
+        return out
+
     # 3. kernel vs plain
-    t0 = time.perf_counter()
-    kres = phase_kernels()
-    print(f"[kernel-vs-plain] {time.perf_counter() - t0:.1f}s", flush=True)
+    kres = timed("kernel-vs-plain", phase_kernels)
 
     # 4. the attribution kernels and the attribution tool's path
-    t0 = time.perf_counter()
-    ares = phase_attribution()
-    print(f"[kattr] {time.perf_counter() - t0:.1f}s", flush=True)
+    ares = timed("kattr", phase_attribution)
 
     # 5. the immediate-fit path, on disjoint and on overlapping partitions
-    t0 = time.perf_counter()
-    cycles_d, launches_d = phase_cycle(overlap=False)
-    cycles_o, launches_o = phase_cycle(overlap=True)
-    print(f"[cycle] immediate {time.perf_counter() - t0:.1f}s", flush=True)
+    cycles, paths = [], {"immediate": 0}
+    for overlap in (False, True):
+        rows, n = timed(f"immediate overlap={overlap}", phase_cycle, overlap)
+        cycles += rows
+        paths["immediate"] += n
 
     # 6. the default path: split backfill cycles
+    rows, paths["backfill_tail"] = timed("backfill", phase_backfill)
+    cycles += rows
+
+    # 7. topology: the block-major tail, then the gang cycle
+    rows, paths["topo_tail"] = timed("topo single-node", phase_topo_single)
+    cycles += rows + timed("topo gangs", phase_topo_gangs)
+
+    # 8. packed and exclusive jobs
+    cycles += timed("packed", phase_packed)
+
+    # 9. preemption, with backfill (timed what-if) and without
+    for backfill in (True, False):
+        rows, n = timed(f"preempt backfill={backfill}", phase_preempt,
+                        backfill)
+        cycles += rows
+        paths["preempt_" + ("backfill_tail" if backfill
+                            else "immediate")] = n
+    launches = sum(paths.values())
+
+    # 10. the CPU checks the phases left to the worker processes
     t0 = time.perf_counter()
-    cycles_b, launches_b = phase_backfill()
-    print(f"[cycle] backfill {time.perf_counter() - t0:.1f}s", flush=True)
-    cycles = cycles_d + cycles_o + cycles_b
-    launches = launches_d + launches_o + launches_b
+    results = {label: f.result() for label, f in _checks.items()}
+    print(f"[cpu-checks] all {len(results)} passed in {CPU_WORKERS} worker "
+          f"processes: {sorted(results)}; waited "
+          f"{time.perf_counter() - t0:.1f}s after the last phase", flush=True)
+    for r in (kres["stream"], kres["serial"]):
+        r["max_abs_err"], r["plain_s"] = results[r["check"]]
+    topo_err = results["topo-single permuted tail"]
 
     st, se = kres["stream"], kres["serial"]
     kernels = [{
@@ -803,10 +1516,9 @@ def main() -> int:
         "jax_function": "cranesched_tpu.models.pallas_solver."
                         "solve_greedy_pallas_auto",
         "launches": launches,
-        "launches_by_path": {"immediate": launches_d + launches_o,
-                             "backfill_tail": launches_b},
+        "launches_by_path": paths,
         "match": "bitwise",
-        "max_abs_err": max(st["max_abs_err"], se["max_abs_err"]),
+        "max_abs_err": max(st["max_abs_err"], se["max_abs_err"], topo_err),
         "ms": st["ms"],
         "kernel_ms": st["ms"],
         "serial_ms": se["ms"],

@@ -58,6 +58,9 @@ class SimCluster:
             for node_id in scheduler.meta.nodes
         }
         self._events: list[_Completion] = []
+        # job_id -> the nodes it was last dispatched to, so a kill or a
+        # completion frees those craneds without a scan of all of them
+        self._job_nodes: dict[int, list[int]] = {}
         self.now = 0.0
 
     def wire(self, scheduler) -> None:
@@ -70,6 +73,7 @@ class SimCluster:
         completion."""
         for node_id in node_ids:
             self.craneds[node_id].alloc_step(job.job_id)
+        self._job_nodes[job.job_id] = list(node_ids)
         runtime = (job.spec.sim_runtime if job.spec.sim_runtime is not None
                    else self.default_runtime)
         start = job.start_time if job.start_time is not None else self.now
@@ -95,7 +99,7 @@ class SimCluster:
         if incarnation is not None and job.requeue_count != incarnation:
             return
         when = self.now if now is None else max(now, self.now)
-        self._remove_step_everywhere(job_id)
+        self._remove_step(job_id)
         self.scheduler.step_status_change(job_id, JobStatus.CANCELLED,
                                           130, when,
                                           incarnation=job.requeue_count)
@@ -111,7 +115,7 @@ class SimCluster:
             # skip jobs already killed and stale pre-requeue events
             if job is None or job.requeue_count != ev.requeue_count:
                 continue
-            self._remove_step_everywhere(ev.job_id)
+            self._remove_step(ev.job_id)
             self.scheduler.step_status_change(ev.job_id, ev.status,
                                               ev.exit_code, ev.time,
                                               incarnation=ev.requeue_count)
@@ -121,9 +125,9 @@ class SimCluster:
     def next_event_time(self) -> float | None:
         return self._events[0].time if self._events else None
 
-    def _remove_step_everywhere(self, job_id: int) -> None:
-        for craned in self.craneds.values():
-            craned.free_step(job_id)
+    def _remove_step(self, job_id: int) -> None:
+        for node_id in self._job_nodes.pop(job_id, ()):
+            self.craneds[node_id].free_step(job_id)
 
     def run_until_drained(self, start: float = 0.0, cycle_s: float = 1.0,
                           max_cycles: int = 100_000) -> float:

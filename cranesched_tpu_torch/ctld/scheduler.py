@@ -1,12 +1,17 @@
 """JobScheduler: the submit → cycle → dispatch → status-change loop
-(port of ``cranesched_tpu/ctld/scheduler.py``, slices 1 and 2).
+(port of ``cranesched_tpu/ctld/scheduler.py``).
 
 A cycle runs:
 
-1. the candidate scan over the PendingTable (or the per-job walk);
+1. the candidate scan over the PendingTable (or the per-job walk), with
+   the license gate;
 2. the multifactor priority sort (``models/priority.py``);
 3. the factored job batch (``_MaskTable`` + ``_build_batch``);
-4. the solve, one of three shapes:
+4. the solve, one of five routes:
+   - ``packed``: a cycle holding a packed or exclusive job
+     (``models/packing.py``; immediate fit, no backfill that cycle);
+   - ``topo``: a gang cycle under an attached topology
+     (``topo/place.py``; best-fit leaf block, no backfill that cycle);
    - ``backfill=False``: the greedy placement by the CUDA kernel on the
      device-resident cluster state (``models/gpu_solver.py``,
      ``ctld/resident.py``);
@@ -16,14 +21,20 @@ A cycle runs:
    - ``backfill=True`` with more candidates: that solve for the
      ``backfill_max_jobs`` head, then the greedy kernel for the tail
      against the head's min-over-horizon availability;
-5. the host commit against the authoritative ledger, and the dispatch.
+   under a topology the greedy kernel sees the node axis in block-major
+   order (``Topology.perm``) and its picks are mapped back;
+5. the host commit against the authoritative ledger, with the license
+   and QoS run-limit admission (``ctld/licenses.py``,
+   ``ctld/accounting.py``);
+6. with accounts and a ``preempt_mode``, the preemption what-if after
+   every route (``models/preempt.py``, or ``models/preempt_time.py``
+   with backfill), its evictions and starts; then the dispatch.
 
 Semantics on this path are the JAX package's, bit for bit.  What the
 port does not carry yet raises ``NotImplementedError`` naming its
-ROADMAP item instead of pretending: preemption, other solver
-backends, packed/exclusive jobs, reservations named by a job, licenses,
-arrays, dependencies, begin times, allocation-only jobs, submit hooks,
-accounting and topologies.  The WAL, HA, federation, job trace, flight
+ROADMAP item instead of pretending: other solver backends, reservations
+named by a job, arrays, dependencies, begin times, allocation-only jobs
+and submit hooks.  The WAL, HA, federation, events, job trace, flight
 recorder, SLO and metrics planes are left out.
 
 The cycle is an explicit ``schedule_cycle(now)`` call with virtual time;
@@ -41,6 +52,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from cranesched_tpu_torch.ctld.accounting import AccountMetaContainer
 from cranesched_tpu_torch.ctld.defs import (
     Job,
     JobSpec,
@@ -50,6 +62,7 @@ from cranesched_tpu_torch.ctld.defs import (
     StepSpec,
     StepStatus,
 )
+from cranesched_tpu_torch.ctld.licenses import LicenseManager
 from cranesched_tpu_torch.ctld.meta import MetaContainer
 from cranesched_tpu_torch.ctld.pending_table import (
     GATE_BEGIN,
@@ -67,6 +80,17 @@ from cranesched_tpu_torch.models.gpu_solver import (
     plan_streams,
     solve_greedy_gpu,
     solve_greedy_gpu_auto,
+)
+from cranesched_tpu_torch.models.packing import PackedJobBatch, solve_packed
+from cranesched_tpu_torch.models.preempt import (
+    PreemptorBatch,
+    VictimRows,
+    solve_preempt,
+)
+from cranesched_tpu_torch.models.preempt_time import (
+    TimedPreemptorBatch,
+    TimedVictimRows,
+    solve_preempt_timed,
 )
 from cranesched_tpu_torch.models.priority import (
     PendingPriorityAttrs,
@@ -91,6 +115,7 @@ from cranesched_tpu_torch.models.solver_time import (
     solve_backfill,
 )
 from cranesched_tpu_torch.ops.resources import DIM_CPU, DIM_MEM
+from cranesched_tpu_torch.topo.place import solve_greedy_topo
 
 _REASON_MAP = {
     REASON_RESOURCE: PendingReason.RESOURCE,
@@ -136,7 +161,7 @@ class SchedulerConfig:
     # the tail with the greedy kernel against the head's
     # min-over-horizon availability (strictly conservative)
     backfill_max_jobs: int = 1024
-    # "off" | "requeue" | "cancel"
+    # QoS preemption (needs ``accounts``): "off" | "requeue" | "cancel"
     preempt_mode: str = "off"
     # the immediate-fit backend: the CUDA greedy-placement kernel
     solver: str = "cuda"
@@ -153,8 +178,10 @@ class SchedulerConfig:
     block_jobs: int = 256
 
     def __post_init__(self):
-        if self.preempt_mode != "off":
-            raise _not_ported("preemption", "A8")
+        if self.preempt_mode not in ("off", "requeue", "cancel"):
+            raise ValueError(
+                f"preempt_mode must be off|requeue|cancel, "
+                f"got {self.preempt_mode!r}")
         if self.solver != "cuda":
             raise _not_ported(f"solver {self.solver!r} (the port's solver "
                               "is 'cuda')", "A8-A11")
@@ -303,20 +330,30 @@ class JobScheduler:
     placement — the seam where a node plane (or ``craned.sim``) plugs
     in.  ``device`` is where the cycle's device work runs: the CUDA card
     unless the caller passes ``device="cpu"``; without a card the
-    constructor raises."""
+    constructor raises.  ``accounts`` (a ``ctld.accounting.AccountManager``)
+    turns on QoS resolution, submit and run limits and, with a
+    ``preempt_mode``, preemption; None is an open system.  Licenses are
+    configured on ``self.licenses``; a topology is attached with
+    ``meta.set_topology``."""
 
     def __init__(self, meta: MetaContainer,
                  config: SchedulerConfig | None = None,
                  dispatch: Callable[[Job, list[int]], None] | None = None,
                  device=None, accounts=None, submit_hook=None):
-        if accounts is not None:
-            raise _not_ported("accounting / QoS", "A8")
         if submit_hook is not None:
             raise _not_ported("submit hooks", "A8")
         self.device = resolve_device(device)
         self.meta = meta
         self.config = config = config or SchedulerConfig()
         self.dispatch = dispatch or (lambda job, nodes: None)
+        # accounting: None = open system, no limit enforcement
+        self.accounts = accounts
+        self.account_meta = (AccountMetaContainer(meta.layout)
+                             if accounts is not None else None)
+        self.licenses = LicenseManager()
+        # timed preemption's deferred evictions: victim job_id -> (due
+        # time, preemptor job_id); the prelude fires due entries
+        self._deferred_evictions: dict[int, tuple[float, int]] = {}
         # ordered post-commit dispatch ring: (job, node_ids) queued by
         # _commit, drained by the cycle's final phase
         self._dispatch_ring: collections.deque = collections.deque()
@@ -383,9 +420,9 @@ class JobScheduler:
         self._run_epoch += 1
 
     def _table_upsert(self, job: Job) -> None:
-        """Derive one PendingTable row from the Job.  Jobs in this slice
-        carry no begin time, dependency, license or array, so those
-        gates are constant."""
+        """Derive one PendingTable row from the Job.  Jobs of the port
+        carry no begin time, dependency or array, so those gates are
+        constant."""
         spec = job.spec
         req, node_num, time_limit = self._job_row(job)
         part = self.meta.partitions.get(spec.partition)
@@ -395,7 +432,7 @@ class JobScheduler:
             held=job.held,
             begin=float("-inf"),
             dep=float("-inf"), dep_never=False,
-            lic=0,
+            lic=self._ptable.lic_key(spec.licenses),
             submit=job.submit_time,
             qos=job.qos_priority,
             part=part.priority if part is not None else 0,
@@ -404,20 +441,25 @@ class JobScheduler:
             mem=float(req[DIM_MEM]) * spec.node_num,
             acct=self._account_id(spec.account),
             tlimit=time_limit,
-            packed=False,
+            packed=self._is_packed(spec),
             req=req)
 
     def _cycle_fingerprint(self) -> tuple:
         """Everything a zero-placement solve's outcome depends on, as
-        epochs: queue content, node availability/liveness, reservations."""
+        epochs: queue content, node availability/liveness, license seats,
+        reservations."""
         return (self._ptable.epoch, self.meta.meta_epoch,
-                self.meta.resv_epoch)
+                self.licenses.epoch, self.meta.resv_epoch)
 
     def _arm_noop(self, now: float) -> None:
         """Arm the no-op short-circuit after a cycle that placed nothing
         and queued no dispatch: until an epoch moves or the nearest time
-        edge passes, an identical cycle would place nothing again."""
+        edge passes, an identical cycle would place nothing again.  Never
+        armed with preemption on: a preemptor's eligibility depends on
+        running-set age, which no epoch tracks."""
         if not self.config.incremental:
+            return
+        if self.config.preempt_mode != "off" and self.accounts is not None:
             return
         fp = self._cycle_fp0
         if fp is None or self._cycle_fingerprint() != fp:
@@ -453,8 +495,6 @@ class JobScheduler:
         """Refuse, loudly, the specs this slice does not carry."""
         if spec.reservation:
             raise _not_ported("jobs in a reservation", "A8")
-        if spec.licenses:
-            raise _not_ported("licenses", "A8")
         if spec.array is not None:
             raise _not_ported("job arrays", "A8")
         if spec.dependencies:
@@ -463,11 +503,6 @@ class JobScheduler:
             raise _not_ported("begin times", "A8")
         if spec.alloc_only:
             raise _not_ported("allocation-only jobs and steps", "A8")
-        if (spec.exclusive or spec.task_res is not None
-                or (spec.ntasks is not None
-                    and spec.ntasks != spec.node_num)
-                or spec.ntasks_per_node_max > 1):
-            raise _not_ported("packed / exclusive jobs", "A8")
 
     def submit(self, spec: JobSpec, now: float) -> int:
         """Validate and enqueue; returns job_id (0 = rejected).  Raises
@@ -484,23 +519,59 @@ class JobScheduler:
                 <= min(self.config.max_nodes_per_job, len(part.node_ids))):
             return 0
         # unknown GRES pairs can never be satisfied
-        if spec.res.gres and not (set(spec.res.gres)
-                                  <= set(self.meta.layout.gres_dims)):
-            return 0
-        # the per-node request must fit at least one node's total in
-        # the partition
+        known_gres = set(self.meta.layout.gres_dims)
+        for res in (spec.res, spec.task_res):
+            if res is not None and res.gres:
+                if not set(res.gres) <= known_gres:
+                    return 0
+        # the per-node minimum request (base + task_res * min tasks)
+        # must fit at least one node's total in the partition
         req = spec.res.encode(self.meta.layout)
+        if spec.task_res is not None:
+            req = req + (spec.task_res.encode(self.meta.layout)
+                         * spec.ntasks_per_node_min)
         if not (req <= self.meta.partition_max_total(spec.partition)).all():
             return 0
+        if spec.ntasks is not None:
+            # every chosen node hosts at least ntasks_per_node_min tasks
+            # (>= 1) and the gang's combined per-node cap covers ntasks
+            nt_max = max(spec.ntasks_per_node_max,
+                         spec.ntasks_per_node_min)
+            nt_min = spec.ntasks_per_node_min
+            if not (max(spec.node_num, spec.node_num * nt_min)
+                    <= spec.ntasks <= spec.node_num * nt_max):
+                return 0
+        if spec.licenses and self.licenses.legal(spec.licenses):
+            return 0  # unknown license or count beyond the total
+
+        qos_name, qos_priority = "", spec.qos_priority
+        if self.accounts is not None:
+            qos, err = self.accounts.resolve_submit(
+                spec.user, spec.account, spec.partition, spec.qos or None)
+            if err:
+                return 0
+            if qos is not None:
+                err = self.account_meta.try_malloc_submit(
+                    spec.user, spec.account, qos, spec)
+                if err:
+                    return 0
+                qos_name, qos_priority = qos.name, qos.priority
+
         job_id = self._next_job_id
         self._next_job_id += 1
         self.stats["jobs_submitted_total"] += 1
         job = Job(job_id=job_id, spec=spec, submit_time=now,
-                  qos_priority=spec.qos_priority, held=spec.held)
+                  qos_name=qos_name, qos_priority=qos_priority,
+                  held=spec.held)
         if spec.held:
             job.pending_reason = PendingReason.HELD
         self.pending[job_id] = job
         return job_id
+
+    def job_info(self, job_id: int) -> Job | None:
+        """The job in any state: pending, running or finished."""
+        return (self.pending.get(job_id) or self.running.get(job_id)
+                or self.history.get(job_id))
 
     def cancel(self, job_id: int, now: float) -> bool:
         if job_id in self.pending:
@@ -576,18 +647,56 @@ class JobScheduler:
         return ch.status == JobStatus.FAILED and job.spec.requeue_if_failed
 
     def _job_alloc(self, job: Job) -> list[np.ndarray]:
-        """Per-node allocation vectors, cached per incarnation."""
+        """Per-node allocation vectors (exclusive jobs own whole nodes;
+        packed jobs scale with their task layout), cached per
+        incarnation."""
         if (job.alloc_cache is not None
                 and len(job.alloc_cache) == len(job.node_ids)):
             return job.alloc_cache
-        base = job.spec.res.encode(self.meta.layout)
-        job.alloc_cache = [base] * len(job.node_ids)
-        return job.alloc_cache
+        spec = job.spec
+        if spec.exclusive:
+            alloc = [self.meta.nodes[n].total.copy()
+                     for n in job.node_ids]
+        else:
+            base = spec.res.encode(self.meta.layout)
+            if spec.task_res is None:
+                alloc = [base] * len(job.node_ids)
+            else:
+                task = spec.task_res.encode(self.meta.layout)
+                layout = (job.task_layout
+                          or [spec.ntasks_per_node_min]
+                          * len(job.node_ids))
+                alloc = [base + task * t for t in layout]
+        job.alloc_cache = alloc
+        return alloc
 
     def _release_job_resources(self, job: Job) -> None:
         self.meta.free_resource(job.job_id, job.node_ids,
                                 self._job_alloc(job))
         self._ledger.remove(job.job_id)
+        self.licenses.free(job.spec.licenses or {})
+        self._free_run_limits(job)
+
+    def _malloc_run_limits(self, job: Job) -> bool:
+        """Schedule-time QoS limit check and usage take.  The take is
+        recorded on the job so the free stays symmetric even if the QoS
+        is deleted and re-created while the job runs."""
+        job.run_usage_taken = False
+        if self.account_meta is not None and job.qos_name:
+            qos = self.accounts.qos.get(job.qos_name)
+            if qos is not None:
+                err = self.account_meta.check_and_malloc_run(
+                    job.spec.user, job.spec.account, qos, job.spec)
+                if err:
+                    return False
+                job.run_usage_taken = True
+        return True
+
+    def _free_run_limits(self, job: Job) -> None:
+        if self.account_meta is not None and job.run_usage_taken:
+            self.account_meta.free_run(job.spec.user, job.spec.account,
+                                       job.qos_name, job.spec)
+            job.run_usage_taken = False
 
     def _effective_end(self, job: Job, now: float) -> float:
         """Expected end with suspended time credited back."""
@@ -596,6 +705,13 @@ class JobScheduler:
         if job.suspend_time is not None:
             suspended += max(now - job.suspend_time, 0.0)
         return start + job.spec.time_limit + suspended
+
+    def _ledger_add(self, job: Job, now: float) -> None:
+        """Register one just-started job's allocation rows."""
+        self._ledger.add(
+            job.job_id, job.node_ids, self._job_alloc(job),
+            self._effective_end(job, now),
+            [self.meta.nodes[n].total[DIM_CPU] for n in job.node_ids])
 
     def _ledger_add_batch(self, jobs: list[Job], now: float) -> None:
         """Register a just-started set's allocation rows in the ledger
@@ -627,6 +743,9 @@ class JobScheduler:
 
     def _finalize(self, job: Job) -> None:
         self.stats["jobs_finished_total"] += 1
+        if self.account_meta is not None and job.qos_name:
+            self.account_meta.free_submit(job.spec.user, job.spec.account,
+                                          job.qos_name)
         self.history[job.job_id] = job
 
     def _init_steps(self, job: Job, now: float) -> None:
@@ -707,10 +826,10 @@ class JobScheduler:
 
     def _cycle_body(self, now: float):
         t0 = time.perf_counter()
-        if self.meta.topology is not None:
-            raise _not_ported("topology-aware placement", "A8")
-        self._cur_trace = {"now": now, "solve_ms": 0.0, "num_streams": 1}
+        self._cur_trace = {"now": now, "solve_ms": 0.0, "num_streams": 1,
+                           "preempted": 0}
         self.process_status_changes()
+        self._drain_deferred_evictions(now)
         self.meta.purge_expired_reservations(now)
         t_prelude = time.perf_counter()
 
@@ -761,11 +880,56 @@ class JobScheduler:
         trace["priority_ms"] = (t_batch - t_sort) * 1e3
         trace["batch_ms"] = (time.perf_counter() - t_batch) * 1e3
 
+        # a cycle holding a packed or exclusive job takes the packed
+        # solve (immediate fit; such jobs get no backfill reservation)
+        orows = self._ordered_rows
+        vec = orows is not None and len(orows) == len(ordered)
+        if (bool(self._ptable.packed[orows].any()) if vec
+                else any(self._is_packed(j.spec) for j in ordered)):
+            state = make_cluster_state(avail, total, alive, cost0,
+                                       device=self.device)
+            pbatch = self._packed_batch(jobs_batch.dense(), ordered)
+            placements = yield self._traced_solve(
+                lambda: solve_packed(state, pbatch, max_nodes=max_nodes)[0])
+            started = self._commit(ordered, placements, now,
+                                   tasks=placements.tasks)
+            started += self._try_preemption(ordered, now)
+            self._record_cycle_stats(t0, candidates, started,
+                                     time.perf_counter(), "packed")
+            if self._dispatch_ring:
+                self._note_dispatch((yield self._dispatch_phase()))
+            return started
+
+        topo = self._active_topology()
+        if topo is not None:
+            self._update_topo_fragmentation(topo, avail, total, alive)
+        if topo is not None and (
+                bool((self._ptable.nnum[orows] > 1).any()) if vec
+                else any(j.spec.node_num > 1 for j in ordered)):
+            # a gang cycle under a topology: the best-fit-block solve,
+            # without backfill this cycle (locality first for gangs)
+            state = make_cluster_state(avail, total, alive, cost0,
+                                       device=self.device)
+            dense = jobs_batch.dense()
+            levels = topo.levels(self.device)
+            placements, _, info = yield self._traced_solve(
+                lambda: solve_greedy_topo(state, dense, levels,
+                                          max_nodes=max_nodes))
+            self._note_topo(topo, ordered, info)
+            started = self._commit(ordered, placements, now)
+            started += self._try_preemption(ordered, now)
+            self._record_cycle_stats(t0, candidates, started,
+                                     time.perf_counter(), "topo")
+            if self._dispatch_ring:
+                self._note_dispatch((yield self._dispatch_phase()))
+            return started
+
         if self.config.backfill:
             if len(ordered) > max(1, self.config.backfill_max_jobs):
                 started = yield from self._split_backfill_phases(
                     ordered, jobs_batch, avail, total, alive, cost0,
                     max_nodes, now)
+                started += self._try_preemption(ordered, now)
                 self._record_cycle_stats(t0, candidates, started,
                                          time.perf_counter(),
                                          "backfill-split")
@@ -787,6 +951,7 @@ class JobScheduler:
                     avail, total, alive, cost0, jobs_batch, max_nodes,
                     resident_ok=True))
             started = self._commit(ordered, placements, now)
+        started += self._try_preemption(ordered, now)
         # double buffer: copy the rows this commit dirtied ahead of the
         # next cycle's resident patch
         self._resident.stage()
@@ -864,8 +1029,32 @@ class JobScheduler:
         classes run the serial kernel, labeled ``cuda``.  The cluster
         state is updated in place on the device; with ``resident_ok`` it
         is the cross-cycle resident state (dirty-row patch) instead of a
-        fresh upload of ``avail`` (an array or a device tensor)."""
+        fresh upload of ``avail`` (an array or a device tensor).
+
+        Under a topology the kernel sees the node axis in block-major
+        order (``Topology.perm``): its ascending-cost, lowest-id walk
+        then clusters picks inside blocks.  The snapshot, the cost seed
+        and the class masks with their host copy (from which the streams
+        and the owned slots are planned) are permuted; the picks are
+        mapped back to real node ids; the resident state, whose rows are
+        real node ids, is dropped for the solve."""
         cfg = self.config
+        topo = self._active_topology()
+        perm = None
+        if topo is not None:
+            perm = topo.perm_tensor(self.device).long()
+
+            def permuted(x):
+                return (x[perm] if isinstance(x, torch.Tensor)
+                        else np.asarray(x)[topo.perm])
+
+            avail, total, alive, cost0 = (permuted(x) for x in (
+                avail, total, alive, cost0))
+            jobs_batch = dataclasses.replace(
+                jobs_batch, class_masks=jobs_batch.class_masks[:, perm],
+                class_rows_np=jobs_batch.class_rows_np[:, topo.perm])
+            self._resident.invalidate()
+            resident_ok = False
         use_resident = resident_ok and self._resident.enabled
         if use_resident:
             state, _mode = self._resident.acquire(
@@ -896,6 +1085,13 @@ class JobScheduler:
                 class_rows=b.class_rows_np)
         if use_resident:
             self._resident.adopt(new_state)
+        if perm is not None:
+            nodes = placements.nodes
+            real = torch.where(
+                nodes >= 0, perm.to(torch.int32)[nodes.clamp(min=0).long()],
+                -1).to(torch.int32)
+            placements = Placements(placed=placements.placed, nodes=real,
+                                    reason=placements.reason)
         num_streams = plan[1] if plan is not None else 1
         self._cur_trace["num_streams"] = num_streams
         return placements, ("cuda-stream" if num_streams > 1 else "cuda")
@@ -953,8 +1149,11 @@ class JobScheduler:
             "patch_overlap": bool(res.last_overlap) if mode else False,
         }
         # backfill cycles: jobs holding a future start, and a split
-        # cycle's solve time by part
-        for key in ("backfilled", "solve_head_ms", "solve_tail_ms"):
+        # cycle's solve time by part; preemption and topology counts
+        for key in ("backfilled", "solve_head_ms", "solve_tail_ms",
+                    "preempted", "preempt_solve_ms", "preempt_inputs_ms",
+                    "preempt_shape", "topo_frag", "topo_in_block",
+                    "topo_cross"):
             if key in trace:
                 value = trace[key]
                 self.stats["last_cycle"][key] = (
@@ -977,9 +1176,7 @@ class JobScheduler:
             self._cand_rows = None
             return self._pending_candidates_rebuild(now)
         pt = self._ptable
-        # licenses are refused at submit: every row carries the empty
-        # license set (id 0), which is always sufficient
-        lic_ok = np.ones(len(pt.lic_sets), bool)
+        lic_ok = pt.license_mask(self.licenses.sufficient)
         cand_rows, changed, gates = pt.candidates(now, lic_ok)
         pending = self.pending
         jid = pt.job_id
@@ -992,11 +1189,18 @@ class JobScheduler:
         return [pending[int(j)] for j in jid[cand_rows]]
 
     def _pending_candidates_rebuild(self, now: float) -> list[Job]:
-        """Skip held jobs (the only gate a job of this slice can hit)."""
+        """Skip held jobs and jobs whose licenses are short (the gates a
+        job of the port can hit)."""
         out = []
         for job in self.pending.values():  # id order == insertion order
             if job.held:
                 job.pending_reason = PendingReason.HELD
+                continue
+            if job.spec.licenses and not self.licenses.sufficient(
+                    job.spec.licenses):
+                # checked before the solve, so a blocked job never idles
+                # nodes the solver set aside for it
+                job.pending_reason = PendingReason.LICENSE
                 continue
             out.append(job)
         return out
@@ -1215,7 +1419,8 @@ class JobScheduler:
     # ------------------------------------------------------------------
 
     def _commit(self, ordered: list[Job], placements, now: float,
-                start_buckets: torch.Tensor | None = None) -> list[int]:
+                start_buckets: torch.Tensor | None = None,
+                tasks: torch.Tensor | None = None) -> list[int]:
         """Host authoritative commit: re-check against the live ledger
         and the cycle's reduce events; jobs whose nodes died mid-cycle
         stay pending for the next cycle.  The placements come back from
@@ -1227,7 +1432,10 @@ class JobScheduler:
         they hold reservations inside the solve and do not dispatch.
         Each reports ``Priority`` when its chosen nodes have room for it
         now (after this commit's allocations) and ``Resource``
-        otherwise."""
+        otherwise.  ``tasks`` (the packed solve's ``[J, K]``) becomes each
+        started job's task layout.  Licenses and QoS run limits are
+        taken per job before the batch malloc and given back if it
+        fails."""
         events = self.meta.stop_logging()
         dirty_nodes = {ev.node_id for ev in events}
 
@@ -1235,6 +1443,9 @@ class JobScheduler:
                 placements.reason[:, None]]
         if start_buckets is not None:
             cols.append(start_buckets.to(torch.int32)[:, None])
+        k = placements.nodes.shape[1]
+        if tasks is not None:
+            cols.append(tasks.to(torch.int32))
         cols.append(placements.nodes.to(torch.int32))
         host = torch.cat(cols, dim=1).cpu().numpy()
         placed = host[:, 0] != 0
@@ -1244,7 +1455,9 @@ class JobScheduler:
             future = placed & (host[:, 2] > 0)
             self._cur_trace["backfilled"] = (
                 self._cur_trace.get("backfilled", 0) + int(future.sum()))
-        nodes_mat = host[:, len(cols) - 1:]
+        nodes_mat = host[:, host.shape[1] - k:]
+        tasks_mat = (host[:, host.shape[1] - 2 * k:host.shape[1] - k]
+                     if tasks is not None else None)
         valid_nodes = nodes_mat >= 0
         # one gather flags every placement row touching a node some
         # mid-cycle event dirtied
@@ -1285,8 +1498,19 @@ class JobScheduler:
                 job.pending_reason = PendingReason.RESOURCE
                 rejected_rows.append(i)
                 continue
+            if job.spec.licenses and not self.licenses.malloc(
+                    job.spec.licenses):
+                job.pending_reason = PendingReason.LICENSE
+                rejected_rows.append(i)
+                continue
+            if not self._malloc_run_limits(job):
+                self.licenses.free(job.spec.licenses or {})
+                job.pending_reason = PendingReason.QOS_LIMIT
+                rejected_rows.append(i)
+                continue
             job.node_ids = nodes_mat[i][valid_nodes[i]].tolist()
-            job.task_layout = []
+            job.task_layout = (tasks_mat[i][valid_nodes[i]].tolist()
+                               if tasks_mat is not None else [])
             admitted.append(job)
             admitted_rows.append(i)
         # each entry sees earlier subtractions exactly as per-job
@@ -1297,7 +1521,10 @@ class JobScheduler:
         started_jobs: list[Job] = []
         for job, row, ok in zip(admitted, admitted_rows, oks):
             if not ok:
+                self.licenses.free(job.spec.licenses or {})
+                self._free_run_limits(job)
                 job.node_ids = []
+                job.task_layout = []
                 job.alloc_cache = None
                 job.pending_reason = PendingReason.RESOURCE
                 rejected_rows.append(row)
@@ -1323,3 +1550,366 @@ class JobScheduler:
         for job in started_jobs:
             self._queue_dispatch(job, job.node_ids)
         return started
+
+    # ------------------------------------------------------------------
+    # packed / exclusive jobs
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _is_packed(spec: JobSpec) -> bool:
+        """A packed or exclusive job: its cycle takes the packed solve."""
+        return bool(spec.exclusive or spec.task_res is not None
+                    or (spec.ntasks is not None
+                        and spec.ntasks != spec.node_num)
+                    or spec.ntasks_per_node_max > 1)
+
+    def _packed_batch(self, batch: JobBatch, ordered: list[Job]
+                      ) -> PackedJobBatch:
+        """The packed solve's batch: the dense batch plus each job's task
+        shape, in priority order."""
+        lay = self.meta.layout
+        J = len(ordered)
+        node_req = np.zeros((J, lay.num_dims), np.int32)
+        task_req = np.zeros((J, lay.num_dims), np.int32)
+        ntasks = np.ones(J, np.int32)
+        nt_min = np.ones(J, np.int32)
+        nt_max = np.ones(J, np.int32)
+        exclusive = np.zeros(J, bool)
+        for i, job in enumerate(ordered):
+            spec = job.spec
+            node_req[i] = self._job_row(job)[0]
+            if spec.task_res is not None:
+                task_req[i] = spec.task_res.encode(lay)
+            ntasks[i] = (spec.ntasks if spec.ntasks is not None
+                         else spec.node_num)
+            nt_min[i] = spec.ntasks_per_node_min
+            nt_max[i] = max(spec.ntasks_per_node_max,
+                            spec.ntasks_per_node_min)
+            exclusive[i] = spec.exclusive
+        dev = self.device
+
+        def t(x):
+            return torch.from_numpy(x).to(dev)
+
+        return PackedJobBatch(
+            node_req=t(node_req), task_req=t(task_req), ntasks=t(ntasks),
+            ntasks_min=t(nt_min), ntasks_max=t(nt_max),
+            node_num=batch.node_num, time_limit=batch.time_limit,
+            part_mask=batch.part_mask, exclusive=t(exclusive),
+            valid=batch.valid)
+
+    # ------------------------------------------------------------------
+    # topology-aware placement (topo/)
+    # ------------------------------------------------------------------
+
+    def _active_topology(self):
+        """The attached Topology, or None when absent or stale (nodes
+        registered after it was built: its arrays no longer line up with
+        the snapshot)."""
+        topo = self.meta.topology
+        if topo is not None and topo.num_nodes != len(self.meta.nodes):
+            return None
+        return topo
+
+    def _update_topo_fragmentation(self, topo, avail, total, alive) -> None:
+        """Leaf-level free-capacity fragmentation of the cycle snapshot
+        (a free node is alive with its full capacity available)."""
+        free = np.asarray(alive) & (np.asarray(avail)
+                                    == np.asarray(total)).all(axis=1)
+        self._cur_trace["topo_frag"] = topo.fragmentation(free)[0][1]
+
+    def _note_topo(self, topo, ordered: list[Job], info) -> None:
+        """Per-gang locality verdicts: trace fields, stats and each job's
+        topo_block / cross_block."""
+        host = torch.stack([info.in_block.to(torch.int32),
+                            info.cross.to(torch.int32),
+                            info.block.to(torch.int32)]).cpu().numpy()
+        in_b, crs, blocks = host.tolist()
+        n_in, n_cross = sum(in_b), sum(crs)
+        self._cur_trace["topo_in_block"] = n_in
+        self._cur_trace["topo_cross"] = n_cross
+        self.stats["topo_in_block_total"] = (
+            self.stats.get("topo_in_block_total", 0) + n_in)
+        self.stats["topo_cross_block_total"] = (
+            self.stats.get("topo_cross_block_total", 0) + n_cross)
+        for i, job in enumerate(ordered):
+            job.cross_block = bool(crs[i])
+            job.topo_block = (
+                topo.block_names[blocks[i]]
+                if in_b[i] and blocks[i] >= 0
+                else ("spanning" if crs[i] else ""))
+
+    # ------------------------------------------------------------------
+    # QoS preemption: a blocked job whose QoS lists lower QoS as
+    # preemptable evicts their running jobs; victims lowest QoS first,
+    # then youngest first
+    # ------------------------------------------------------------------
+
+    def _preemptor_req(self, job: Job) -> tuple[np.ndarray, list[int]]:
+        """Per-node requirement a preemptor needs freed, and its task
+        layout.  Packed jobs use the balanced layout's MAX per-node
+        requirement in the what-if (the commit gives later nodes the
+        floor, which can only need less)."""
+        spec = job.spec
+        base = spec.res.encode(self.meta.layout).astype(np.int64)
+        ntasks = spec.ntasks if spec.ntasks is not None else spec.node_num
+        # balanced layout always (all ones for ntasks == node_num)
+        hi = int(np.ceil(ntasks / spec.node_num))
+        lo = ntasks // spec.node_num
+        n_hi = ntasks - lo * spec.node_num
+        layout = [hi] * n_hi + [lo] * (spec.node_num - n_hi)
+        if spec.task_res is None:
+            return base, layout
+        task = spec.task_res.encode(self.meta.layout).astype(np.int64)
+        return base + task * hi, layout
+
+    def _preempt_inputs(self, cands: list[Job], prey_sets: list,
+                        victims: list[Job], now: float) -> dict:
+        """The what-if's host arrays, vectorised: the flat (victim, node)
+        rows in victim order (``vid``, ``node``, ``alloc``, and with
+        backfill ``end``, the release bucket), the preemptors' rows
+        (``req``, ``node_num``, ``time_limit``, ``part_mask``,
+        ``exclusive``, ``layouts``) and ``can_prey[J, V]``, a gather of a
+        ``[J, Q]`` QoS membership table by each victim's QoS id."""
+        R = self.meta.layout.num_dims
+        allocs = [self._job_alloc(v) for v in victims]
+        lens = np.fromiter((len(v.node_ids) for v in victims), np.int64,
+                           len(victims))
+        M = int(lens.sum())
+        out = {
+            "vid": np.repeat(np.arange(len(victims), dtype=np.int32), lens),
+            "node": np.fromiter(
+                (n for v in victims for n in v.node_ids), np.int32, M),
+            "alloc": (np.stack([a for al in allocs for a in al]).astype(
+                np.int32) if M else np.zeros((0, R), np.int32)),
+        }
+        qid = {name: q for q, name in enumerate(sorted(set().union(
+            *prey_sets)))}
+        table = np.zeros((len(cands), len(qid)), bool)
+        for i, prey in enumerate(prey_sets):
+            table[i, [qid[name] for name in prey]] = True
+        v_qos = np.fromiter((qid[v.qos_name] for v in victims), np.int64,
+                            len(victims))
+        out["can_prey"] = table[:, v_qos]
+        reqs, layouts = zip(*(self._preemptor_req(job) for job in cands))
+        out["req"] = np.stack(reqs).astype(np.int32)
+        out["layouts"] = list(layouts)
+        out["node_num"] = np.array([j.spec.node_num for j in cands], np.int32)
+        out["time_limit"] = np.array([j.spec.time_limit for j in cands],
+                                     np.int32)
+        out["part_mask"] = np.stack([self._mask_for(j, now) for j in cands])
+        out["exclusive"] = np.array([j.spec.exclusive for j in cands], bool)
+        if self.config.backfill:
+            T = self.config.time_buckets
+            start = np.array([v.start_time or now for v in victims],
+                             np.float64)
+            limit = np.array([v.spec.time_limit for v in victims],
+                             np.float64)
+            remain = np.maximum(start + limit - now, 0.0)
+            end = np.minimum(self._grid.release_bucket(remain), T + 1)
+            out["end"] = end.astype(np.int32)[out["vid"]]
+        return out
+
+    def _try_preemption(self, ordered: list[Job], now: float) -> list[int]:
+        """The device what-if (``models/preempt.py``, or the time-axis
+        ``models/preempt_time.py`` with backfill) and the host commit.
+        Runs after the normal solve, so a job that got only a
+        future-start reservation can still preempt its way to an
+        immediate start."""
+        if self.config.preempt_mode == "off" or self.accounts is None:
+            return []
+        # blocked preemptor candidates, in priority order
+        cands, prey_sets = [], []
+        for job in ordered:
+            if job.job_id not in self.pending:
+                continue  # it placed normally
+            if job.pending_reason not in (PendingReason.RESOURCE,
+                                          PendingReason.PRIORITY):
+                continue
+            qos = self.accounts.qos.get(job.qos_name)
+            if qos is None or not qos.preempt:
+                continue
+            cands.append(job)
+            prey_sets.append(qos.preempt)
+        if not cands:
+            return []
+        # the victim pool: only jobs some candidate may prey on, sorted
+        # once by the victim order; the global order induces each node's
+        prey_union = set().union(*prey_sets)
+        victims = sorted(
+            (j for j in self.running.values() if j.qos_name in prey_union),
+            key=lambda v: (v.qos_priority, -(v.start_time or 0.0)))
+        if not victims:
+            return []
+
+        t0 = time.perf_counter()
+        x = self._preempt_inputs(cands, prey_sets, victims, now)
+        dev = self.device
+
+        def t(a, dtype=None):
+            out = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            return out if dtype is None else out.to(dtype)
+
+        J, V, M = len(cands), len(victims), len(x["vid"])
+        vrows = VictimRows(vid=t(x["vid"]), node=t(x["node"]),
+                           alloc=t(x["alloc"]),
+                           valid=torch.ones(M, dtype=torch.bool, device=dev))
+        jobs = dict(req=t(x["req"]), node_num=t(x["node_num"]),
+                    time_limit=t(x["time_limit"]),
+                    part_mask=t(x["part_mask"]),
+                    exclusive=t(x["exclusive"]), can_prey=t(x["can_prey"]),
+                    valid=torch.ones(J, dtype=torch.bool, device=dev))
+        max_nodes = max(1, min(int(x["node_num"].max(initial=1)),
+                               self.config.max_nodes_per_job))
+        avail, total, alive = self.meta.snapshot()
+        N = total.shape[0]
+        cost0 = self._ledger.cost0(now, N)
+        t1 = time.perf_counter()
+        start_buckets = None
+        if self.config.backfill:
+            # s == 0 starts now; s > 0 defers the evictions to the start
+            # bucket (the victims keep running until then)
+            tstate = self._timed_state(now, avail, total, alive, cost0)
+            decisions, _ = solve_preempt_timed(
+                tstate.time_avail, tstate.total, tstate.alive, tstate.cost,
+                TimedVictimRows(rows=vrows, end_bucket=t(x["end"])),
+                TimedPreemptorBatch(**jobs), num_victims=V,
+                max_nodes=max_nodes, edges=self._grid_edges)
+            start_buckets = decisions.start_bucket.cpu().numpy()
+        else:
+            state = make_cluster_state(avail, total, alive, cost0,
+                                       device=dev)
+            decisions, _ = solve_preempt(
+                state.avail, state.total, state.alive, state.cost, vrows,
+                PreemptorBatch(**jobs), num_victims=V, max_nodes=max_nodes)
+        placed = decisions.placed.cpu().numpy()
+        nodes_mat = decisions.nodes.cpu().numpy()
+        evict_mat = decisions.evict.cpu().numpy()
+        t2 = time.perf_counter()
+        trace = self._cur_trace
+        trace["preempt_solve_ms"] = (t2 - t1) * 1e3
+        trace["preempt_inputs_ms"] = (t1 - t0) * 1e3
+        trace["preempt_shape"] = (J, V, M)
+
+        started: list[int] = []
+        T = self.config.time_buckets
+        for i, job in enumerate(cands):
+            if not placed[i]:
+                continue
+            chosen = [int(n) for n in nodes_mat[i] if n >= 0]
+            evict_ids = [victims[vi].job_id
+                         for vi in np.nonzero(evict_mat[i])[0]]
+            if start_buckets is not None and start_buckets[i] > 0:
+                # a future start: killing the victims now would leave
+                # their resources idle until the start bucket, so the
+                # evictions are deferred to its edge; each cycle's solve
+                # rewrites the claims
+                if evict_ids:
+                    due = now + float(self._grid.edges[
+                        min(int(start_buckets[i]), T)])
+                    for victim_id in evict_ids:
+                        self._deferred_evictions[victim_id] = (
+                            due, job.job_id)
+                    job.pending_reason = PendingReason.PRIORITY
+                continue
+            if self._commit_preemption(job, chosen, evict_ids,
+                                       x["layouts"][i], now):
+                started.append(job.job_id)
+            else:
+                # later candidates' decisions assumed this one placed:
+                # stop, they retry next cycle against fresh state
+                break
+        return started
+
+    def _commit_preemption(self, job: Job, chosen: list[int],
+                           evict_ids: list[int], layout: list[int],
+                           now: float) -> bool:
+        """Host-authoritative commit of one preemption decision:
+        admission checks BEFORE any eviction (victims never die for a
+        preemptor that cannot start), then evict, then malloc."""
+        if len(chosen) < job.spec.node_num:
+            return False
+        if job.spec.licenses and not self.licenses.malloc(
+                job.spec.licenses):
+            job.pending_reason = PendingReason.LICENSE
+            return False
+        if not self._malloc_run_limits(job):
+            self.licenses.free(job.spec.licenses or {})
+            job.pending_reason = PendingReason.QOS_LIMIT
+            return False
+
+        for victim_id in evict_ids:
+            self._evict(victim_id, now)
+        job.node_ids = chosen
+        job.task_layout = list(layout)
+        job.alloc_cache = None
+        if not self.meta.malloc_resource(job.job_id, chosen,
+                                         self._job_alloc(job)):
+            # only a mid-cycle reduce event gets here: undo admission
+            self.licenses.free(job.spec.licenses or {})
+            self._free_run_limits(job)
+            job.node_ids = []
+            job.task_layout = []
+            job.alloc_cache = None
+            job.pending_reason = PendingReason.RESOURCE
+            return False
+        del self.pending[job.job_id]
+        job.status = JobStatus.RUNNING
+        job.start_time = now
+        job.pending_reason = PendingReason.NONE
+        self._init_steps(job, now)
+        self.running[job.job_id] = job
+        self._ledger_add(job, now)
+        self._queue_dispatch(job, chosen)
+        return True
+
+    def _drain_deferred_evictions(self, now: float) -> None:
+        """Fire timed-preemption evictions whose start bucket arrived.
+        A claim is void once its preemptor left the pending queue (placed,
+        cancelled) or was held, or the victim ended on its own: void
+        claims are dropped without killing anything."""
+        for victim_id in list(self._deferred_evictions):
+            due, preemptor_id = self._deferred_evictions[victim_id]
+            preemptor = self.pending.get(preemptor_id)
+            if (preemptor is None or preemptor.held
+                    or victim_id not in self.running):
+                del self._deferred_evictions[victim_id]
+                continue
+            if due <= now:
+                del self._deferred_evictions[victim_id]
+                self._evict(victim_id, now)
+
+    def _evict(self, victim_id: int, now: float) -> None:
+        """Evict a running job for a preemptor: kill its steps, free its
+        resources, then requeue or cancel it per ``preempt_mode``."""
+        victim = self.running.get(victim_id)
+        if victim is None:
+            return
+        self._cur_trace["preempted"] = (
+            self._cur_trace.get("preempted", 0) + 1)
+        self.stats["jobs_preempted_total"] = (
+            self.stats.get("jobs_preempted_total", 0) + 1)
+        self.dispatch_terminate(victim_id, now,
+                                incarnation=victim.requeue_count)
+        self._release_job_resources(victim)
+        del self.running[victim_id]
+        if victim.cancel_requested:
+            # the user already cancelled it (kill in flight): honour the
+            # cancel instead of requeueing it as preempted
+            victim.status = JobStatus.CANCELLED
+            victim.end_time = now
+            victim.exit_code = 130
+            self._finalize_terminal(victim)
+            return
+        if self.config.preempt_mode == "requeue":
+            victim.reset_for_requeue()
+            victim.pending_reason = PendingReason.PREEMPTED
+            if victim.requeue_count > self.config.max_requeue_count:
+                victim.held = True
+                victim.pending_reason = PendingReason.HELD
+            self.pending[victim_id] = victim
+        else:  # cancel
+            victim.status = JobStatus.CANCELLED
+            victim.end_time = now
+            victim.exit_code = 143
+            self._finalize_terminal(victim)

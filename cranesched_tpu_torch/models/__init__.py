@@ -25,6 +25,23 @@ from cranesched_tpu_torch.models.gpu_solver import (
     solve_greedy_gpu_auto,
     solve_greedy_gpu_from_batch,
 )
+from cranesched_tpu_torch.models.packing import (
+    PackedJobBatch,
+    PackedPlacements,
+    solve_packed,
+)
+from cranesched_tpu_torch.models.preempt import (
+    PreemptDecisions,
+    PreemptorBatch,
+    VictimRows,
+    solve_preempt,
+)
+from cranesched_tpu_torch.models.preempt_time import (
+    TimedPreemptDecisions,
+    TimedPreemptorBatch,
+    TimedVictimRows,
+    solve_preempt_timed,
+)
 
 __all__ = [
     "COST_INF",
@@ -36,11 +53,19 @@ __all__ = [
     "FactoredJobBatch",
     "JobBatch",
     "NO_START",
+    "PackedJobBatch",
+    "PackedPlacements",
     "Placements",
+    "PreemptDecisions",
+    "PreemptorBatch",
     "TimeGrid",
     "TimedClusterState",
     "TimedJobBatch",
     "TimedPlacements",
+    "TimedPreemptDecisions",
+    "TimedPreemptorBatch",
+    "TimedVictimRows",
+    "VictimRows",
     "make_cluster_state",
     "make_timed_state",
     "solve_backfill",
@@ -48,4 +73,7 @@ __all__ = [
     "solve_greedy_gpu",
     "solve_greedy_gpu_auto",
     "solve_greedy_gpu_from_batch",
+    "solve_packed",
+    "solve_preempt",
+    "solve_preempt_timed",
 ]

@@ -71,17 +71,16 @@ def normalize_cost_ledger(cost, n: int, device) -> torch.Tensor:
 
 def cheapest_k(masked_cost: torch.Tensor, k: int):
     """The k smallest entries of an int32 cost vector, ascending, ties to
-    the lowest index (argmin returns the first occurrence).  Each winner
-    is masked to the sentinel before the next argmin.  Returns
-    ``(values int32[k], indices int64[k])``."""
-    c = masked_cost.clone()
-    vals, idxs = [], []
-    for _ in range(k):
-        i = torch.argmin(c).reshape(1)
-        vals.append(c.index_select(0, i))
-        idxs.append(i)
-        c.index_fill_(0, i, COST_INF)
-    return torch.cat(vals), torch.cat(idxs)
+    the lowest index: the k smallest of the unique int64 keys ``cost * N
+    + index``, one ``topk``.  Returns ``(values int32[k], indices
+    int64[k])``.  Slots past the last finite (below ``COST_INF``) entry
+    hold ``COST_INF``; their indices are not specified (the JAX package's
+    iterative argmin repeats one), and every caller masks those slots."""
+    n = masked_cost.shape[0]
+    key = (masked_cost.to(torch.int64) * n
+           + torch.arange(n, device=masked_cost.device))
+    top = torch.topk(key, k, largest=False, sorted=True).values
+    return (top // n).to(torch.int32), top % n
 
 
 @dataclasses.dataclass
@@ -305,6 +304,15 @@ def _place_one(avail, cost, cpu_total, alive, req, node_num, time_limit,
     sel = ok & k_mask & (sel_cost < COST_INF)
     apply_placement(avail, cost, cpu_total, req, time_limit, idx, sel)
     return ok, torch.where(sel, idx, -1), reason
+
+
+def stack_rows(rows: list, shape: tuple, dtype, device) -> torch.Tensor:
+    """Stack a per-job loop's outputs (each of ``shape``) into one tensor,
+    ``[0, *shape]`` for an empty batch: one launch at the end of the loop
+    instead of one write a job."""
+    if not rows:
+        return torch.zeros((0, *shape), dtype=dtype, device=device)
+    return torch.stack(rows).to(dtype)
 
 
 def cpu_total_of(state: ClusterState) -> torch.Tensor:

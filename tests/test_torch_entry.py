@@ -4,7 +4,9 @@ refuse loudly what the port does not carry yet.
 Here there is no CUDA device, so every entry point given no ``device``
 must raise; with ``device="cpu"`` it runs.  Out-of-slice configuration
 and job specs raise ``NotImplementedError`` naming their ROADMAP item
-instead of being accepted or rejected as invalid.
+instead of being accepted or rejected as invalid; what the port carries
+(packed and exclusive jobs, licenses, accounts, topologies, preemption
+modes) is accepted.
 """
 
 import numpy as np
@@ -58,13 +60,24 @@ def test_entry_points_raise_without_cuda():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(preempt_mode="cancel"), "A8"),
-    (dict(backfill=False, preempt_mode="requeue"), "A8"),
+    (dict(solver="pallas"), "A8"),
+    (dict(backfill=False, solver="sharded"), "A8"),
     (dict(backfill=False, solver="device"), "A8"),
 ])
 def test_unsupported_config_raises(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         SchedulerConfig(**kw)
+
+
+@pytest.mark.parametrize("mode", ["off", "requeue", "cancel"])
+def test_preempt_modes_accepted(mode):
+    """Preemption is in the port: the JAX package's three modes are
+    accepted with backfill on and off; anything else is invalid."""
+    for backfill in (True, False):
+        assert SchedulerConfig(backfill=backfill,
+                               preempt_mode=mode).preempt_mode == mode
+    with pytest.raises(ValueError, match="preempt_mode"):
+        SchedulerConfig(preempt_mode="suspend")
 
 
 def test_default_config_runs_the_backfill_cycle():
@@ -93,40 +106,70 @@ _RES = ResourceSpec(cpu=1.0, mem_bytes=1 << 30)
 
 @pytest.mark.parametrize("spec", [
     JobSpec(res=_RES, reservation="r"),
-    JobSpec(res=_RES, licenses={"lic": 1}),
     JobSpec(res=_RES, array=ArraySpec(0, 3)),
     JobSpec(res=_RES, dependencies=(Dependency(1),)),
     JobSpec(res=_RES, begin_time=10.0),
-    JobSpec(res=_RES, task_res=_RES),
-    JobSpec(res=_RES, ntasks=3),
-    JobSpec(res=_RES, exclusive=True),
-    JobSpec(res=_RES, ntasks_per_node_max=2),
     JobSpec(res=_RES, alloc_only=True),
-], ids=["reservation", "licenses", "array", "dependencies", "begin_time",
-        "task_res", "ntasks", "exclusive", "ntasks_per_node_max",
+], ids=["reservation", "array", "dependencies", "begin_time",
         "alloc_only"])
 def test_out_of_slice_spec_raises(spec):
+    """The specs still outside the port name their ROADMAP item."""
     sched = JobScheduler(_meta(), SchedulerConfig(backfill=False),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A8"):
         sched.submit(spec, now=0.0)
     assert not sched.pending
 
 
 def test_out_of_slice_scheduler_features_raise():
     meta = _meta()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        JobScheduler(meta, SchedulerConfig(backfill=False), device="cpu",
-                     accounts=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A8"):
         JobScheduler(meta, SchedulerConfig(backfill=False), device="cpu",
                      submit_hook=lambda spec: spec)
-    sched = JobScheduler(meta, SchedulerConfig(backfill=False),
+
+
+@pytest.mark.parametrize("spec", [
+    JobSpec(res=_RES, licenses={"lic": 1}),
+    JobSpec(res=_RES, task_res=_RES),
+    JobSpec(res=_RES, ntasks=2, ntasks_per_node_max=2),
+    JobSpec(res=_RES, exclusive=True),
+    JobSpec(res=_RES, ntasks_per_node_max=2),
+], ids=["licenses", "task_res", "ntasks", "exclusive",
+        "ntasks_per_node_max"])
+def test_packed_and_licensed_specs_accepted(spec):
+    """Packed and exclusive jobs and licenses are in the port: they are
+    submitted and placed."""
+    sched = JobScheduler(_meta(), SchedulerConfig(backfill=False),
                          device="cpu")
-    meta.topology = object()   # any attached topology
-    sched.submit(JobSpec(res=_RES), now=0.0)
-    with pytest.raises(NotImplementedError, match="topology"):
-        sched.schedule_cycle(now=1.0)
+    sched.licenses.configure("lic", 2)
+    jid = sched.submit(spec, now=0.0)
+    assert jid > 0
+    assert sched.schedule_cycle(now=1.0) == [jid]
+    assert sched.stats["last_cycle"]["solver"] in ("packed", "cuda")
+
+
+def test_accounts_topology_and_preemption_accepted():
+    """Accounts, a topology and a preempt_mode no longer raise."""
+    from cranesched_tpu_torch.ctld.accounting import (
+        Account, AccountManager, AdminLevel, Qos, User)
+    from cranesched_tpu_torch.topo import Topology
+
+    mgr = AccountManager()
+    mgr.users["root"] = User(name="root", admin_level=AdminLevel.ROOT)
+    mgr.add_qos("root", Qos(name="normal", preempt={"normal"}))
+    mgr.add_account("root", Account(name="hpc", allowed_qos={"normal"},
+                                    default_qos="normal"))
+    mgr.add_user("root", User(name="alice", uid=1), "hpc")
+    meta = _meta()
+    meta.set_topology(Topology.uniform_blocks(4, 2))
+    sched = JobScheduler(meta, SchedulerConfig(preempt_mode="requeue"),
+                         device="cpu", accounts=mgr)
+    jid = sched.submit(JobSpec(res=_RES, user="alice", account="hpc",
+                               node_num=2), now=0.0)
+    assert jid > 0 and sched.pending[jid].qos_name == "normal"
+    assert sched.schedule_cycle(now=1.0) == [jid]
+    assert sched.stats["last_cycle"]["solver"] == "topo"
+    assert sched.running[jid].topo_block in ("block0", "block1")
 
 
 def test_invalid_specs_still_rejected_with_zero():

@@ -2,8 +2,10 @@
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
 ``jaxlib``, ``flax`` and the top-level ``cranesched_tpu`` (not
-``cranesched_tpu_torch``), imports every module of the port and runs a
-16-node scheduling cycle on the CPU.  ``chip_smoke.py`` is checked by an
+``cranesched_tpu_torch``), imports every module of the port (the
+topology, hostlist, accounting, license, packing and preemption modules
+among them) and runs a 16-node scheduling cycle on the CPU with a
+topology, a license and a packed job.  ``chip_smoke.py`` is checked by an
 AST scan of its imports.
 """
 
@@ -67,6 +69,14 @@ _CHILD = textwrap.dedent("""
             res=ResourceSpec(cpu=2.0, mem_bytes=1 << 30),
             partition="p%d" % (j % 2), node_num=1 + j % 2,
             sim_runtime=30.0), now=0.0) > 0
+    # a topology, licenses and a packed job take the new routes
+    from cranesched_tpu_torch.topo import Topology
+    meta.set_topology(Topology.uniform_blocks(16, 4))
+    sched.licenses.configure("lic", 2)
+    assert sched.submit(JobSpec(
+        res=ResourceSpec(cpu=1.0, mem_bytes=1 << 30), licenses=dict(lic=1),
+        task_res=ResourceSpec(cpu=1.0), ntasks=3, ntasks_per_node_max=2,
+        node_num=2, partition="p0", sim_runtime=30.0), now=0.0) > 0
     started = sched.schedule_cycle(now=1.0)
     assert started, "nothing placed"
     end = sim.run_until_drained(start=2.0)
@@ -84,6 +94,10 @@ def test_port_imports_without_jax_and_runs_a_cycle():
     assert "cranesched_tpu_torch.models.gpu_solver" in mods
     assert "cranesched_tpu_torch.models.solver_time" in mods
     assert "cranesched_tpu_torch.tools.kattr" in mods
+    for mod in ("topo", "topo.model", "topo.place", "utils.hostlist",
+                "ctld.accounting", "ctld.licenses", "models.packing",
+                "models.preempt", "models.preempt_time"):
+        assert f"cranesched_tpu_torch.{mod}" in mods, mod
     code = _CHILD.format(blocked=BLOCKED, mods=mods)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
