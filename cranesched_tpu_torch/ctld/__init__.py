@@ -4,7 +4,11 @@ scheduling cycle.
 - ``defs``      job/step lifecycle types
 - ``meta``      authoritative cluster state — nodes, partitions, resource
                 ledger, mid-cycle reduce events
-- ``scheduler`` submit → cycle → commit → dispatch → status-change → free
+- ``scheduler`` submit → cycle → commit → dispatch → status-change → free,
+                and recovery from a WAL replay
+- ``wal``       write-ahead log of job runtime records (group commit)
+- ``archive``   durable history of terminal jobs (sqlite)
+- ``acct_store`` durable accounts, users and QoS (sqlite)
 """
 
 from cranesched_tpu_torch.ctld.defs import (
@@ -18,6 +22,7 @@ from cranesched_tpu_torch.ctld.defs import (
 )
 from cranesched_tpu_torch.ctld.meta import MetaContainer, NodeMeta, Partition
 from cranesched_tpu_torch.ctld.scheduler import JobScheduler, SchedulerConfig
+from cranesched_tpu_torch.ctld.wal import WriteAheadLog
 
 __all__ = [
     "JobScheduler",
@@ -32,4 +37,5 @@ __all__ = [
     "Step",
     "StepSpec",
     "StepStatus",
+    "WriteAheadLog",
 ]

@@ -30,12 +30,22 @@ A cycle runs:
    every route (``models/preempt.py``, or ``models/preempt_time.py``
    with backfill), its evictions and starts; then the dispatch.
 
-Semantics on this path are the JAX package's, bit for bit.  What the
-port does not carry yet raises ``NotImplementedError`` naming its
-ROADMAP item instead of pretending: other solver backends, reservations
-named by a job, arrays, dependencies, begin times, allocation-only jobs
-and submit hooks.  The WAL, HA, federation, events, job trace, flight
-recorder, SLO and metrics planes are left out.
+Around the cycle sits the job lifecycle: dependencies, begin times,
+job arrays (one child per template per cycle), reservations named by a
+job, hold / requeue / ``modify_job`` / suspend / resume, node deaths,
+cancel intents that are renewed until confirmed, steps inside an
+allocation (``alloc_only`` jobs), and a submit hook.  With a
+``WriteAheadLog`` every durable mutation is logged before it takes
+effect: each lock-held segment of a cycle is one WAL group (one write,
+one fsync), and the dispatch ring drops any entry whose start record
+is not durable.  ``recover`` rebuilds the queues from a replay and
+``rebuild_device_state`` drops every device-side cache, so the first
+cycle after a restart pays one full rebuild of the resident state.
+
+Semantics are the JAX package's, bit for bit.  What the port does not
+carry yet raises ``NotImplementedError`` naming its ROADMAP item: other
+solver backends.  HA, federation, and the events, job trace, flight
+recorder, SLO and explain planes are left out.
 
 The cycle is an explicit ``schedule_cycle(now)`` call with virtual time;
 ``cycle_phases`` exposes it as a generator whose yielded closures (the
@@ -46,7 +56,9 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import time
+import traceback
 from typing import Callable
 
 import numpy as np
@@ -54,6 +66,8 @@ import torch
 
 from cranesched_tpu_torch.ctld.accounting import AccountMetaContainer
 from cranesched_tpu_torch.ctld.defs import (
+    DEP_NEVER,
+    DepType,
     Job,
     JobSpec,
     JobStatus,
@@ -117,6 +131,8 @@ from cranesched_tpu_torch.models.solver_time import (
 from cranesched_tpu_torch.ops.resources import DIM_CPU, DIM_MEM
 from cranesched_tpu_torch.topo.place import solve_greedy_topo
 
+_LOG = logging.getLogger("cranesched.ctld")
+
 _REASON_MAP = {
     REASON_RESOURCE: PendingReason.RESOURCE,
     REASON_CONSTRAINT: PendingReason.CONSTRAINT,
@@ -148,6 +164,8 @@ class SchedulerConfig:
     priority_weights: PriorityWeights = dataclasses.field(
         default_factory=PriorityWeights)
     max_requeue_count: int = 3
+    # a craned that expects pings and misses them this long is down
+    craned_timeout: float = 30.0
     # time axis: duration-aware fit and conservative backfill on a grid
     # of ``time_buckets`` buckets of ``time_resolution`` seconds; a
     # ``time_horizon`` beyond resolution * buckets stretches the tail
@@ -334,31 +352,68 @@ class JobScheduler:
     turns on QoS resolution, submit and run limits and, with a
     ``preempt_mode``, preemption; None is an open system.  Licenses are
     configured on ``self.licenses``; a topology is attached with
-    ``meta.set_topology``."""
+    ``meta.set_topology``.  ``wal`` (a ``ctld.wal.WriteAheadLog``) makes
+    the lifecycle durable; ``archive`` (a ``ctld.archive.JobArchive``)
+    keeps terminal jobs past WAL compaction.  ``submit_hook`` maps a
+    JobSpec to a JobSpec (possibly rewritten) or None (reject); a hook
+    that raises or returns anything else rejects the job and counts in
+    ``stats['submit_hook_failures']``."""
+
+    # history the RAM dict may hold with an archive attached (without
+    # one, RAM is the only record and nothing is evicted)
+    HISTORY_CACHE_MAX = 10_000
+
+    # minimum seconds between kill re-sends for one unconfirmed cancel
+    CANCEL_RENEW_INTERVAL = 5.0
 
     def __init__(self, meta: MetaContainer,
                  config: SchedulerConfig | None = None,
                  dispatch: Callable[[Job, list[int]], None] | None = None,
-                 device=None, accounts=None, submit_hook=None):
-        if submit_hook is not None:
-            raise _not_ported("submit hooks", "A8")
+                 device=None, wal=None, accounts=None, submit_hook=None,
+                 archive=None):
         self.device = resolve_device(device)
         self.meta = meta
         self.config = config = config or SchedulerConfig()
         self.dispatch = dispatch or (lambda job, nodes: None)
+        self.wal = wal
+        # HA fencing term stamped on dispatch ring entries; 0 until HA
+        # is in the port
+        self.fencing_epoch = 0
+        # attached at the end of __init__: attach_archive seeds the
+        # job-id counter
+        self.archive = None
         # accounting: None = open system, no limit enforcement
         self.accounts = accounts
         self.account_meta = (AccountMetaContainer(meta.layout)
                              if accounts is not None else None)
         self.licenses = LicenseManager()
+        self.submit_hook = submit_hook
         # timed preemption's deferred evictions: victim job_id -> (due
         # time, preemptor job_id); the prelude fires due entries
         self._deferred_evictions: dict[int, tuple[float, int]] = {}
-        # ordered post-commit dispatch ring: (job, node_ids) queued by
-        # _commit, drained by the cycle's final phase
+        # ordered post-commit dispatch ring: (job, node_ids, incarnation,
+        # fencing epoch, WAL seq) queued by the commits, drained by the
+        # cycle's final phase once the WAL group holding the start
+        # records is durable
         self._dispatch_ring: collections.deque = collections.deque()
         # persistent SoA mirror of the pending queue
         self._ptable = PendingTable(meta.layout.num_dims)
+        # membership indexes kept by the dict hooks: array templates
+        # awaiting materialization, alloc_only jobs whose time limit the
+        # scheduler enforces itself
+        self._array_templates: set[int] = set()
+        self._alloc_only: set[int] = set()
+        # dependee job -> waiting dependents
+        self._dependents: dict[int, set[int]] = {}
+        # job_id -> last kill send for unconfirmed cancel intents; the
+        # same per (job_id, step_id) for step cancels
+        self._cancel_kill_sent: dict[int, float] = {}
+        self._step_cancel_sent: dict[tuple[int, int], float] = {}
+        # job_id -> (new time limit, last send) for unconfirmed pushes
+        self._limit_intents: dict[int, tuple[float, float]] = {}
+        self._finalized_since_compact = 0
+        # WAL (fsyncs, groups) at the start of the in-flight cycle
+        self._wal_cycle_base = (0, 0)
         # no-op short-circuit state: fingerprint + nearest time edge
         self._noop_fp: tuple | None = None
         self._noop_edge: float = float("inf")
@@ -378,6 +433,10 @@ class JobScheduler:
             self._on_running_set, self._on_running_del)
         self.history: dict[int, Job] = {}    # terminal jobs
         self._status_queue: collections.deque[StatusChange] = (
+            collections.deque())
+        # step-level reports from transport threads, drained by
+        # process_status_changes
+        self._step_report_queue: collections.deque[tuple] = (
             collections.deque())
         self._next_job_id = 1
         self._account_index: dict[str, int] = {}
@@ -401,6 +460,16 @@ class JobScheduler:
         }
         # the in-flight cycle's accumulator of phase times and labels
         self._cur_trace: dict = {}
+        if archive is not None:
+            self.attach_archive(archive)
+
+    def attach_archive(self, archive) -> None:
+        """Wire the durable history store.  Seeds the job-id counter
+        past every archived id: a restart whose WAL was compacted would
+        otherwise reuse ids."""
+        self.archive = archive
+        self._next_job_id = max(self._next_job_id,
+                                archive.max_job_id() + 1)
 
     # ------------------------------------------------------------------
     # incremental cycle state: membership hooks, the PendingTable row
@@ -409,29 +478,62 @@ class JobScheduler:
 
     def _on_pending_set(self, job_id: int, job: Job) -> None:
         self._table_upsert(job)
+        if job.spec.array is not None:
+            self._array_templates.add(job_id)
 
     def _on_pending_del(self, job_id: int, job: Job) -> None:
         self._ptable.remove(job_id)
+        self._array_templates.discard(job_id)
 
     def _on_running_set(self, job_id: int, job: Job) -> None:
+        if job.spec.alloc_only:
+            self._alloc_only.add(job_id)
         self._run_epoch += 1
 
     def _on_running_del(self, job_id: int, job: Job) -> None:
+        self._alloc_only.discard(job_id)
         self._run_epoch += 1
 
+    @staticmethod
+    def _dep_cols(job: Job) -> tuple[float, bool]:
+        """``(dep_ready_time, never)`` table columns mirroring
+        ``_deps_runnable``: the row is dep-blocked while
+        ``dep_ready_time > now``; ``never`` selects the
+        DEPENDENCY_NEVER_SATISFIED reason.  Edges still waiting on an
+        event map to +inf with never=False: only ``_trigger_dep_event``
+        (which refreshes the row) unblocks them."""
+        if not job.dep_state:
+            return float("-inf"), False
+        states = list(job.dep_state.values())
+        if job.spec.deps_is_or:
+            finite = [v for v in states
+                      if v is not None and v != DEP_NEVER]
+            if finite:
+                return min(finite), False
+            if all(v == DEP_NEVER for v in states):
+                return float("inf"), True
+            return float("inf"), False
+        if any(v == DEP_NEVER for v in states):
+            return float("inf"), True
+        if any(v is None for v in states):
+            return float("inf"), False
+        return max(states), False
+
     def _table_upsert(self, job: Job) -> None:
-        """Derive one PendingTable row from the Job.  Jobs of the port
-        carry no begin time, dependency or array, so those gates are
-        constant."""
+        """Derive one PendingTable row from the Job.  Every value the
+        cycle's vectorized passes gather is re-derived here on any event
+        that can change it."""
         spec = job.spec
+        dep, dep_never = self._dep_cols(job)
         req, node_num, time_limit = self._job_row(job)
         part = self.meta.partitions.get(spec.partition)
         self._ptable.upsert(
             job.job_id,
-            template=False,
+            template=spec.array is not None,
             held=job.held,
-            begin=float("-inf"),
-            dep=float("-inf"), dep_never=False,
+            begin=(spec.begin_time if spec.begin_time is not None
+                   else float("-inf")),
+            dep=dep, dep_never=dep_never,
             lic=self._ptable.lic_key(spec.licenses),
             submit=job.submit_time,
             qos=job.qos_priority,
@@ -443,6 +545,12 @@ class JobScheduler:
             tlimit=time_limit,
             packed=self._is_packed(spec),
             req=req)
+
+    def _table_refresh(self, job: Job) -> None:
+        """Re-derive a pending job's row after an in-place mutation
+        (hold, modify, a dependency trigger)."""
+        if job.job_id in self.pending:
+            self._table_upsert(job)
 
     def _cycle_fingerprint(self) -> tuple:
         """Everything a zero-placement solve's outcome depends on, as
@@ -486,28 +594,65 @@ class JobScheduler:
             "running": len(self.running)}
         return []
 
+    def can_idle(self) -> bool:
+        """True when an event-driven loop may sleep: the no-op
+        fingerprint is armed and still matches, and no queued work
+        (dispatch ring, status or step reports, unconfirmed kill or
+        time-limit intents, deferred evictions) needs the next cycle."""
+        return (self.config.incremental
+                and self._noop_fp is not None
+                and self._cycle_fingerprint() == self._noop_fp
+                and not self._dispatch_ring
+                and not self._status_queue
+                and not self._step_report_queue
+                and not self._cancel_kill_sent
+                and not self._step_cancel_sent
+                and not self._limit_intents
+                and not self._deferred_evictions)
+
+    def next_wake_time(self, now: float) -> float:
+        """Earliest future moment a sleeping loop must cycle even without
+        an event: a begin/dependency/reservation edge, an alloc_only
+        job's time limit, the next craned ping-timeout sweep, or a
+        deferred eviction.  +inf when nothing is time-gated."""
+        wake = self._noop_edge
+        for job_id in self._alloc_only:
+            job = self.running.get(job_id)
+            if job is not None and job.status == JobStatus.RUNNING:
+                wake = min(wake, self._effective_end(job, now))
+        if any(node.alive and node.expect_pings
+               for node in self.meta.nodes.values()):
+            wake = min(wake, now + self.config.craned_timeout / 2)
+        for due, _preemptor in self._deferred_evictions.values():
+            wake = min(wake, due)
+        return wake
+
     # ------------------------------------------------------------------
-    # submit / cancel
+    # submit / cancel / hold / requeue / modify
     # ------------------------------------------------------------------
 
-    @staticmethod
-    def _check_supported(spec: JobSpec) -> None:
-        """Refuse, loudly, the specs this slice does not carry."""
-        if spec.reservation:
-            raise _not_ported("jobs in a reservation", "A8")
-        if spec.array is not None:
-            raise _not_ported("job arrays", "A8")
-        if spec.dependencies:
-            raise _not_ported("dependencies", "A8")
-        if spec.begin_time is not None:
-            raise _not_ported("begin times", "A8")
-        if spec.alloc_only:
-            raise _not_ported("allocation-only jobs and steps", "A8")
+    def _hook_failed(self, msg: str, *args) -> int:
+        _LOG.error(msg, *args)
+        self.stats["submit_hook_failures"] = (
+            self.stats.get("submit_hook_failures", 0) + 1)
+        return 0
 
     def submit(self, spec: JobSpec, now: float) -> int:
-        """Validate and enqueue; returns job_id (0 = rejected).  Raises
-        NotImplementedError for a spec outside the slice."""
-        self._check_supported(spec)
+        """Validate and enqueue; returns job_id (0 = rejected)."""
+        if self.submit_hook is not None:
+            # operator code: a crashing or misbehaving hook rejects the
+            # job, never the control plane, and is logged and counted
+            try:
+                spec = self.submit_hook(spec)
+            except Exception:
+                return self._hook_failed("submit hook raised:\n%s",
+                                         traceback.format_exc())
+            if spec is None:
+                return 0
+            if not isinstance(spec, JobSpec):
+                return self._hook_failed(
+                    "submit hook returned %r (expected JobSpec or None)",
+                    type(spec).__name__)
         if len(self.pending) >= self.config.pending_queue_max_size:
             return 0
         part = self.meta.partitions.get(spec.partition)
@@ -541,8 +686,14 @@ class JobScheduler:
             if not (max(spec.node_num, spec.node_num * nt_min)
                     <= spec.ntasks <= spec.node_num * nt_max):
                 return 0
+        if spec.reservation:
+            resv = self.meta.reservations.get(spec.reservation)
+            if resv is None or not resv.account_allowed(spec.account):
+                return 0
         if spec.licenses and self.licenses.legal(spec.licenses):
             return 0  # unknown license or count beyond the total
+        if spec.array is not None and not spec.array.task_ids():
+            return 0
 
         qos_name, qos_priority = "", spec.qos_priority
         if self.accounts is not None:
@@ -565,7 +716,12 @@ class JobScheduler:
                   held=spec.held)
         if spec.held:
             job.pending_reason = PendingReason.HELD
+        if spec.array is not None:
+            job.array_remaining = spec.array.task_ids()
+        self._register_dependencies(job)
         self.pending[job_id] = job
+        if self.wal is not None:
+            self.wal.job_submitted(job)
         return job_id
 
     def job_info(self, job_id: int) -> Job | None:
@@ -573,21 +729,125 @@ class JobScheduler:
         return (self.pending.get(job_id) or self.running.get(job_id)
                 or self.history.get(job_id))
 
+    # ---- dependencies: event-driven edges; AFTER fires on start, the
+    # terminal kinds on the dependee's end, a failed branch never ----
+
+    def _register_dependencies(self, job: Job) -> None:
+        for dep in job.spec.dependencies:
+            target = self.job_info(dep.job_id)
+            if target is None:
+                job.dep_state[dep.job_id] = DEP_NEVER
+                continue
+            sat = self._dep_satisfied_time(dep, target)
+            job.dep_state[dep.job_id] = sat
+            if sat is None:   # still waiting on an event
+                self._dependents.setdefault(dep.job_id, set()).add(
+                    job.job_id)
+
+    @staticmethod
+    def _dep_satisfied_time(dep, target: Job) -> float | None:
+        """Edge state from the dependee's current state: a timestamp
+        (satisfiable from then + delay), DEP_NEVER, or None (waiting)."""
+        if dep.type == DepType.AFTER:
+            if target.start_time is not None:
+                return target.start_time + dep.delay_seconds
+            if target.status.is_terminal:   # never started and never will
+                return (target.end_time or 0.0) + dep.delay_seconds \
+                    if target.status == JobStatus.COMPLETED else DEP_NEVER
+            return None
+        if not target.status.is_terminal:
+            return None
+        end = target.end_time or 0.0
+        if dep.type == DepType.AFTER_ANY:
+            return end + dep.delay_seconds
+        if dep.type == DepType.AFTER_OK:
+            return (end + dep.delay_seconds
+                    if target.status == JobStatus.COMPLETED else DEP_NEVER)
+        # AFTER_NOT_OK
+        return (end + dep.delay_seconds
+                if target.status.is_failed_kind else DEP_NEVER)
+
+    def _trigger_dep_event(self, target: Job) -> None:
+        """Re-evaluate the waiting edges of this job's dependents."""
+        waiting = self._dependents.get(target.job_id)
+        if not waiting:
+            return
+        done = set()
+        for jid in waiting:
+            dep_job = self.pending.get(jid)
+            if dep_job is None:
+                done.add(jid)
+                continue
+            changed = False
+            for dep in dep_job.spec.dependencies:
+                if dep.job_id != target.job_id:
+                    continue
+                sat = self._dep_satisfied_time(dep, target)
+                if sat is not None:
+                    dep_job.dep_state[dep.job_id] = sat
+                    changed = True
+            if changed:
+                # dep_state mutated in place: the table row must see the
+                # new ready time or NEVER verdict
+                self._table_refresh(dep_job)
+            if all(v is not None for v in dep_job.dep_state.values()):
+                done.add(jid)
+        if target.status.is_terminal:
+            self._dependents.pop(target.job_id, None)
+        else:
+            waiting -= done
+
+    @staticmethod
+    def _deps_runnable(job: Job, now: float) -> PendingReason | None:
+        """None = runnable; else the pending reason to surface."""
+        if not job.dep_state:
+            return None
+        states = list(job.dep_state.values())
+        if job.spec.deps_is_or:
+            if any(v is not None and v != DEP_NEVER and v <= now
+                   for v in states):
+                return None
+            if all(v == DEP_NEVER for v in states):
+                return PendingReason.DEPENDENCY_NEVER_SATISFIED
+            return PendingReason.DEPENDENCY
+        if any(v == DEP_NEVER for v in states):
+            return PendingReason.DEPENDENCY_NEVER_SATISFIED
+        if all(v is not None and v <= now for v in states):
+            return None
+        return PendingReason.DEPENDENCY
+
     def cancel(self, job_id: int, now: float) -> bool:
         if job_id in self.pending:
             job = self.pending.pop(job_id)
             job.status = JobStatus.CANCELLED
             job.end_time = now
+            if job.spec.array is not None:
+                # a template: drop the unmaterialized tasks and cancel
+                # the live children
+                job.array_remaining = []
+                for c in list(job.array_children):
+                    self.cancel(c, now)
             self._finalize_terminal(job)
             return True
         if job_id in self.running:
             job = self.running[job_id]
             job.cancel_requested = True
+            if job.spec.alloc_only:
+                # no batch step will ever report: the scheduler owns the
+                # allocation's end, so it finalizes now
+                self._teardown_alloc_job(job, now, JobStatus.CANCELLED,
+                                         130)
+                return True
             # the node plane owns the kill; the Cancelled status change
-            # comes back through step_status_change
+            # comes back through step_status_change.  The intent is on
+            # the job and in the WAL, so neither a node death racing the
+            # kill nor a crash resurrects the job
             for step in job.steps.values():
                 if not step.status.is_terminal:
                     step.cancel_requested = True
+            if self.wal is not None:
+                self.wal.job_updated(job)
+            self._cancel_kill_sent[job_id] = now
             self.dispatch_terminate(job_id, now)
             return True
         return False
@@ -597,7 +857,126 @@ class JobScheduler:
                            skip_node: int | None = None) -> None:
         """Transport seam: kill the job's steps on its nodes (a
         simulated cluster delivers a Cancelled status change).
-        ``incarnation`` guards the kill to that requeue_count."""
+        ``incarnation`` guards the kill to that requeue_count;
+        ``skip_node`` omits a node already declared dead."""
+
+    def hold(self, job_id: int, held: bool, now: float) -> bool:
+        job = self.pending.get(job_id)
+        if job is None:
+            return False
+        job.held = held
+        job.pending_reason = (PendingReason.HELD if held
+                              else PendingReason.NONE)
+        if self.wal is not None:
+            self.wal.job_updated(job)
+        self._table_refresh(job)
+        return True
+
+    def requeue(self, job_id: int, now: float) -> str:
+        """Operator requeue: kill the running incarnation and return the
+        job to pending.  Returns "" on success, else the refusal."""
+        if job_id in self.pending:
+            return "job is pending; nothing to requeue"
+        job = self.running.get(job_id)
+        if job is None:
+            return "no such running job"
+        if job.cancel_requested:
+            return "cancel already requested"
+        if job.status == JobStatus.SUSPENDED:
+            return "job is suspended; resume it first"
+        self.dispatch_terminate(job_id, now,
+                                incarnation=job.requeue_count)
+        self._release_job_resources(job)
+        del self.running[job_id]
+        self._cancel_kill_sent.pop(job_id, None)
+        job.reset_for_requeue()
+        if job.requeue_count > self.config.max_requeue_count:
+            job.held = True
+            job.pending_reason = PendingReason.HELD
+        self.pending[job_id] = job
+        if self.wal is not None:
+            self.wal.job_requeued(job)
+        return ""
+
+    def modify_job(self, job_id: int, now: float, *,
+                   time_limit: float | None = None,
+                   priority: int | None = None,
+                   partition: str | None = None) -> str:
+        """Modify a job in place.  Returns "" on success, else the
+        refusal.  A time limit applies to pending and running jobs (a
+        running job's new deadline goes to its nodes through
+        ``dispatch_change_time_limit``); priority and partition change
+        pending jobs only."""
+        job = self.pending.get(job_id) or self.running.get(job_id)
+        if job is None:
+            return f"job {job_id} not found or already terminal"
+        running = job_id in self.running
+        if running and (priority is not None or partition is not None):
+            return "only the time limit of a running job can change"
+        if time_limit is not None:
+            if time_limit <= 0:
+                return "time limit must be positive"
+            if self.accounts is not None and job.qos_name:
+                qos = self.accounts.qos.get(job.qos_name)
+                if qos is not None and (
+                        time_limit > qos.max_time_limit_per_job
+                        or time_limit > qos.max_wall):
+                    return ("time limit exceeds qos "
+                            f"{job.qos_name} bound")
+        if partition is not None:
+            # full submit-time validation against the new partition
+            part = self.meta.partitions.get(partition)
+            if part is None:
+                return f"partition {partition} not found"
+            if not part.node_ids:
+                return f"partition {partition} has no nodes"
+            if not part.account_allowed(job.spec.account):
+                return (f"account {job.spec.account} not allowed in "
+                        f"partition {partition}")
+            if job.spec.node_num > len(part.node_ids):
+                return (f"gang of {job.spec.node_num} exceeds "
+                        f"partition {partition} size")
+            req = job.spec.res.encode(self.meta.layout)
+            if job.spec.task_res is not None:
+                req = req + (job.spec.task_res.encode(self.meta.layout)
+                             * job.spec.ntasks_per_node_min)
+            if not (req <= self.meta.partition_max_total(partition)
+                    ).all():
+                return (f"request exceeds every node in partition "
+                        f"{partition}")
+            if self.accounts is not None:
+                _qos, err = self.accounts.resolve_submit(
+                    job.spec.user, job.spec.account, partition,
+                    job.spec.qos or None)
+                if err:
+                    return err
+        if time_limit is not None:
+            job.spec = dataclasses.replace(job.spec,
+                                           time_limit=float(time_limit))
+            if running:
+                # the ledger's release row follows the new deadline
+                self._ledger.set_end_time(
+                    job_id, self._effective_end(job, now))
+                self._limit_intents[job_id] = (float(time_limit), now)
+                self.dispatch_change_time_limit(job_id, float(time_limit),
+                                                now)
+        if priority is not None:
+            job.qos_priority = int(priority)
+        if partition is not None:
+            job.spec = dataclasses.replace(job.spec, partition=partition)
+            job.pending_reason = PendingReason.NONE
+        if self.wal is not None:
+            self.wal.job_updated(job)
+        if not running:
+            self._table_refresh(job)
+        return ""
+
+    def dispatch_change_time_limit(self, job_id: int, time_limit: float,
+                                   now: float) -> None:
+        """Transport seam: push the new deadline to the job's nodes.  The
+        simulated plane re-reads spec.time_limit, so the base seam just
+        confirms the intent."""
+        self._limit_intents.pop(job_id, None)
 
     # ------------------------------------------------------------------
     # status changes
@@ -605,16 +984,79 @@ class JobScheduler:
 
     def step_status_change(self, job_id: int, status: JobStatus,
                            exit_code: int, now: float,
+                           node_id: int = -1,
                            incarnation: int | None = None) -> None:
-        """A whole-job status report from the node plane, queued for the
-        next cycle's drain.  (Per-node reports and their aggregation come
-        with the real node plane, ROADMAP A9.)"""
+        """A status report from the node plane, queued for the next
+        cycle's drain.  ``node_id >= 0`` is one node's report: the job is
+        terminal once every allocated node reported (the first failure
+        kills the rest), worst status winning.  ``node_id == -1`` is a
+        whole-job report (the simulated plane, dispatch failures)."""
+        queue_incarnation = incarnation
+        if node_id >= 0:
+            job = self.running.get(job_id)
+            if job is None or node_id not in job.node_ids:
+                return   # stale: a previous incarnation's node
+            if (incarnation is not None
+                    and incarnation != job.requeue_count):
+                return
+            ok = (JobStatus.COMPLETED, JobStatus.CANCELLED)
+            is_failure = status not in ok
+            had_failure = any(st not in ok
+                              for st, _ in job.node_reports.values())
+            job.node_reports[node_id] = (status, exit_code)
+            if is_failure and not had_failure:
+                # first failure: kill the remaining steps; their
+                # Cancelled reports complete the set
+                self.dispatch_terminate(job_id, now,
+                                        incarnation=job.requeue_count)
+            if not all(n in job.node_reports for n in job.node_ids):
+                return
+            reports = list(job.node_reports.values())
+            agg_status, agg_code = JobStatus.COMPLETED, 0
+            for st, code in reports:
+                if st not in ok:
+                    agg_status, agg_code = st, code
+                    break
+            else:
+                cancelled = [st == JobStatus.CANCELLED for st, _ in reports]
+                if all(cancelled):
+                    agg_status, agg_code = JobStatus.CANCELLED, 130
+                elif any(cancelled):
+                    # our kill next to completions: a user cancel or the
+                    # collateral of another node's failure
+                    agg_status = (JobStatus.CANCELLED
+                                  if job.cancel_requested
+                                  else JobStatus.COMPLETED)
+            status, exit_code = agg_status, agg_code
+            queue_incarnation = job.requeue_count
         self._status_queue.append(
             StatusChange(job_id, status, exit_code, now,
-                         incarnation=incarnation))
+                         incarnation=queue_incarnation))
+
+    def step_report_async(self, job_id: int, step_id: int,
+                          status: StepStatus, exit_code: int, now: float,
+                          incarnation: int | None = None) -> None:
+        """Thread-safe step report enqueue (drained at the next
+        ``process_status_changes``)."""
+        self._step_report_queue.append(
+            (job_id, step_id, status, exit_code, now, incarnation))
 
     def process_status_changes(self) -> int:
-        """Drain the status queue (cycle step 1).  Returns #processed."""
+        """Drain the queues (cycle step 1).  Returns #processed.  Every
+        WAL event of one drain commits as one group: inside a cycle it
+        nests into the cycle's group."""
+        self._wal_begin()
+        try:
+            return self._process_status_changes()
+        finally:
+            self._wal_flush()
+
+    def _process_status_changes(self) -> int:
+        while self._step_report_queue:
+            job_id, step_id, status, exit_code, now, incarnation = (
+                self._step_report_queue.popleft())
+            self.step_report(job_id, step_id, status, exit_code, now,
+                             incarnation=incarnation)
         n = 0
         while self._status_queue:
             ch = self._status_queue.popleft()
@@ -627,6 +1069,7 @@ class JobScheduler:
             n += 1
             self._release_job_resources(job)
             del self.running[ch.job_id]
+            self._cancel_kill_sent.pop(ch.job_id, None)
             job.end_time = ch.time
             job.exit_code = ch.exit_code
             job.status = ch.status
@@ -636,6 +1079,8 @@ class JobScheduler:
                     job.held = True
                     job.pending_reason = PendingReason.HELD
                 self.pending[job.job_id] = job
+                if self.wal is not None:
+                    self.wal.job_requeued(job)
             else:
                 self._finalize_terminal(job)
         return n
@@ -707,11 +1152,14 @@ class JobScheduler:
         return start + job.spec.time_limit + suspended
 
     def _ledger_add(self, job: Job, now: float) -> None:
-        """Register one just-started job's allocation rows."""
+        """Register one just-started (or re-adopted) job's allocation
+        rows."""
         self._ledger.add(
             job.job_id, job.node_ids, self._job_alloc(job),
             self._effective_end(job, now),
             [self.meta.nodes[n].total[DIM_CPU] for n in job.node_ids])
+        if job.status == JobStatus.SUSPENDED:
+            self._ledger.suspend(job.job_id, now)
 
     def _ledger_add_batch(self, jobs: list[Job], now: float) -> None:
         """Register a just-started set's allocation rows in the ledger
@@ -726,12 +1174,15 @@ class JobScheduler:
              for job in jobs])
 
     def _finalize_terminal(self, job: Job) -> None:
-        """Terminal processing: close the step records with the
-        allocation, then move the job to history."""
+        """Full terminal processing: close the step records with the
+        allocation, move the job to history (archive, WAL tombstone),
+        fire its dependency events and the array-parent bookkeeping.
+        Every path that ends a job outside the status drain uses this:
+        dependency edges are event-driven, never polled."""
         for step in job.steps.values():
             if step.status.is_terminal:
                 continue
-            if step.step_id == 0:
+            if step.step_id == 0 and not job.spec.alloc_only:
                 step.status = StepStatus(job.status.value)
                 step.exit_code = (job.exit_code
                                   if job.exit_code is not None else 0)
@@ -740,18 +1191,85 @@ class JobScheduler:
                 step.exit_code = 130
             step.end_time = job.end_time
         self._finalize(job)
+        self._trigger_dep_event(job)
+        if job.array_parent_id is not None:
+            self._on_array_child_terminal(job)
 
     def _finalize(self, job: Job) -> None:
         self.stats["jobs_finished_total"] += 1
-        if self.account_meta is not None and job.qos_name:
+        # array children never took a submit slot (the template owns it)
+        if (self.account_meta is not None and job.qos_name
+                and job.array_parent_id is None):
             self.account_meta.free_submit(job.spec.user, job.spec.account,
                                           job.qos_name)
         self.history[job.job_id] = job
+        if self.archive is not None:
+            # archive before the WAL tombstone: once both exist the job
+            # survives compaction and restart in the durable store, and
+            # RAM history becomes a bounded recency cache
+            self.archive.append(job)
+            while len(self.history) > self.HISTORY_CACHE_MAX:
+                self.history.pop(next(iter(self.history)))
+        if self.wal is not None:
+            self.wal.job_finalized(job)
+            # the periodic purge of finalized records is safe only with
+            # a durable archive: without one the tombstones are the
+            # whole history
+            if self.archive is not None:
+                self._finalized_since_compact += 1
+                if self._finalized_since_compact >= 1000:
+                    self._finalized_since_compact = 0
+                    self.wal.compact()
+
+    # ------------------------------------------------------------------
+    # suspend / resume: suspended time is credited back to the limit
+    # ------------------------------------------------------------------
+
+    def suspend(self, job_id: int, now: float) -> bool:
+        job = self.running.get(job_id)
+        if job is None or job.status != JobStatus.RUNNING:
+            return False
+        job.status = JobStatus.SUSPENDED
+        job.suspend_time = now
+        self._ledger.suspend(job_id, now)
+        if self.wal is not None:
+            self.wal.job_updated(job)
+        self.dispatch_suspend(job_id, now)
+        return True
+
+    def resume(self, job_id: int, now: float) -> bool:
+        job = self.running.get(job_id)
+        if job is None or job.status != JobStatus.SUSPENDED:
+            return False
+        job.suspended_total += max(now - (job.suspend_time or now), 0.0)
+        job.suspend_time = None
+        job.status = JobStatus.RUNNING
+        self._ledger.resume(job_id, now)
+        if self.wal is not None:
+            self.wal.job_updated(job)
+        self.dispatch_resume(job_id, now)
+        return True
+
+    def dispatch_suspend(self, job_id: int, now: float) -> None:
+        """Transport seam: freeze the job's cgroups on its nodes."""
+
+    def dispatch_resume(self, job_id: int, now: float) -> None:
+        """Transport seam: thaw the job's cgroups."""
+
+    # ------------------------------------------------------------------
+    # steps within an allocation: a batch job carries an implicit step
+    # 0; an ``alloc_only`` job holds the allocation while steps are
+    # submitted, packed into its capacity, and complete on their own
+    # ------------------------------------------------------------------
 
     def _init_steps(self, job: Job, now: float) -> None:
         """The allocation starts: a batch job materializes its implicit
-        step 0 (the batch script)."""
+        step 0 (the batch script); an alloc_only job starts empty."""
         spec = job.spec
+        if spec.alloc_only:
+            job.steps = {}
+            job.next_step_id = 0
+            return
         job.steps = {0: Step(
             step_id=0,
             spec=StepSpec(name="batch", script=spec.script, res=None,
@@ -765,6 +1283,388 @@ class JobScheduler:
             submit_time=now, status=StepStatus.RUNNING,
             start_time=now, node_ids=list(job.node_ids))}
         job.next_step_id = 1
+
+    def submit_step(self, job_id: int, spec: StepSpec, now: float) -> int:
+        """Add a step to a running allocation; returns its step_id (-1 =
+        rejected).  It starts at once if its per-node share fits the
+        allocation's free internal capacity, else waits PENDING until an
+        earlier step ends."""
+        job = self.running.get(job_id)
+        if job is None or job.status != JobStatus.RUNNING:
+            return -1
+        if job.cancel_requested:
+            return -1
+        if spec.node_num > len(job.node_ids):
+            return -1
+        if spec.res is not None:
+            req = spec.res.encode(self.meta.layout)
+            # it must fit the allocation's per-node share at all
+            if not all((req <= alloc).all()
+                       for alloc in self._job_alloc(job)):
+                return -1
+        step_id = job.next_step_id
+        job.next_step_id += 1
+        job.steps[step_id] = Step(step_id=step_id, spec=spec,
+                                  submit_time=now)
+        self._try_start_steps(job, now)
+        if self.wal is not None:
+            self.wal.job_updated(job)
+        return step_id
+
+    def _step_req(self, step: Step) -> np.ndarray | None:
+        """Per-node vector the step occupies; None = whole nodes."""
+        if step.spec.res is None:
+            return None
+        return step.spec.res.encode(self.meta.layout)
+
+    def _try_start_steps(self, job: Job, now: float) -> list[int]:
+        """Start the pending steps (id order) that fit the allocation's
+        free internal capacity.  A step with res=None takes whole nodes,
+        so such steps serialize; sized steps pack.  Overlap steps start
+        at once and hold no share."""
+        started = []
+        allocs = self._job_alloc(job)
+        free = [a.astype(np.int64).copy() for a in allocs]
+        whole_busy = [False] * len(job.node_ids)
+        for st in job.steps.values():
+            if st.status != StepStatus.RUNNING or st.spec.overlap:
+                continue
+            req = self._step_req(st)
+            for n in st.node_ids:
+                i = job.node_ids.index(n)
+                if req is None:
+                    whole_busy[i] = True
+                else:
+                    free[i] -= req
+        for step_id in sorted(job.steps):
+            step = job.steps[step_id]
+            if step.status != StepStatus.PENDING:
+                continue
+            want = step.spec.node_num or len(job.node_ids)
+            if step.spec.overlap:
+                # an observation channel starts on the observed step's
+                # nodes (or the allocation's prefix)
+                nodes = None
+                if step.spec.follow_step is not None:
+                    tgt = job.steps.get(step.spec.follow_step)
+                    if tgt is not None and not tgt.status.is_terminal:
+                        if tgt.status != StepStatus.RUNNING:
+                            continue   # wait for the target to place
+                        nodes = list(tgt.node_ids)[:want]
+                step.status = StepStatus.RUNNING
+                step.start_time = now
+                step.node_ids = nodes if nodes else job.node_ids[:want]
+                started.append(step_id)
+                self.dispatch_step(job, step)
+                continue
+            req = self._step_req(step)
+            picked = []
+            for i in range(len(job.node_ids)):
+                if len(picked) == want:
+                    break
+                if whole_busy[i]:
+                    continue
+                if req is None:
+                    if (free[i] == allocs[i]).all():
+                        picked.append(i)
+                elif (req <= free[i]).all():
+                    picked.append(i)
+            if len(picked) < want:
+                continue
+            step.status = StepStatus.RUNNING
+            step.start_time = now
+            step.node_ids = [job.node_ids[i] for i in picked]
+            for i in picked:
+                if req is None:
+                    whole_busy[i] = True
+                else:
+                    free[i] -= req
+            started.append(step_id)
+            self.dispatch_step(job, step)
+        return started
+
+    def dispatch_step(self, job: Job, step: Step) -> None:
+        """Transport seam: push the step to the allocation's nodes."""
+
+    def dispatch_terminate_step(self, job_id: int, step_id: int,
+                                now: float) -> None:
+        """Transport seam: kill exactly one step."""
+
+    def dispatch_free_alloc(self, job_id: int, now: float,
+                            incarnation: int | None = None,
+                            skip_node: int | None = None) -> None:
+        """Transport seam: release the job's allocation on its nodes.
+        Defaults to a plain terminate (the simulated plane has no
+        allocation state to free)."""
+        self.dispatch_terminate(job_id, now, incarnation=incarnation,
+                                skip_node=skip_node)
+
+    def cancel_step(self, job_id: int, step_id: int, now: float) -> bool:
+        job = self.running.get(job_id)
+        if job is None:
+            return False
+        step = job.steps.get(step_id)
+        if step is None or step.status.is_terminal:
+            return False
+        step.cancel_requested = True
+        if step.status == StepStatus.PENDING:
+            step.status = StepStatus.CANCELLED
+            step.end_time = now
+            step.exit_code = 130
+        else:
+            self.dispatch_terminate_step(job_id, step_id, now)
+            self._step_cancel_sent[(job_id, step_id)] = now
+        if self.wal is not None:
+            self.wal.job_updated(job)
+        return True
+
+    def _teardown_alloc_job(self, job: Job, now: float,
+                            status: JobStatus, exit_code: int) -> None:
+        """The end of an allocation (cancel, free, time limit): free it
+        on the nodes, return the resources, finalize with the outcome.
+        Live steps are closed by _finalize_terminal (CANCELLED, 130)."""
+        self.dispatch_free_alloc(job.job_id, now,
+                                 incarnation=job.requeue_count)
+        self._release_job_resources(job)
+        del self.running[job.job_id]
+        self._cancel_kill_sent.pop(job.job_id, None)
+        job.status = status
+        job.end_time = now
+        job.exit_code = exit_code
+        self._finalize_terminal(job)
+
+    def free_allocation(self, job_id: int, now: float) -> bool:
+        """End an alloc_only job COMPLETED: kill its running steps and
+        release its resources."""
+        job = self.running.get(job_id)
+        if job is None or not job.spec.alloc_only:
+            return False
+        self._teardown_alloc_job(job, now, JobStatus.COMPLETED, 0)
+        return True
+
+    def step_report(self, job_id: int, step_id: int, status: StepStatus,
+                    exit_code: int, now: float, node_id: int = -1,
+                    incarnation: int | None = None,
+                    cpu_seconds: float = 0.0,
+                    max_rss_bytes: int = 0) -> None:
+        """A step's status report (per node, or whole-step from the
+        simulated plane).  Steps aggregate per node like jobs; a
+        terminal step frees its share and pulls the next pending step
+        in.  Step 0 of a batch job closes the whole job through the
+        job-level queue, keeping the requeue semantics."""
+        job = self.running.get(job_id)
+        if job is None:
+            return
+        if incarnation is not None and incarnation != job.requeue_count:
+            return
+        step = job.steps.get(step_id)
+        if step is None or step.status.is_terminal:
+            return
+
+        def fold_usage():
+            # accepted first-time reports only: cpu-seconds add up,
+            # RSS keeps the peak, the job aggregates its steps
+            if cpu_seconds or max_rss_bytes:
+                step.cpu_seconds += cpu_seconds
+                step.max_rss_bytes = max(step.max_rss_bytes,
+                                         max_rss_bytes)
+                job.cpu_seconds += cpu_seconds
+                job.max_rss_bytes = max(job.max_rss_bytes, max_rss_bytes)
+
+        if node_id >= 0:
+            if node_id not in step.node_ids:
+                return
+            if node_id not in step.node_reports:
+                fold_usage()
+            ok = (StepStatus.COMPLETED, StepStatus.CANCELLED)
+            is_failure = status not in ok
+            had_failure = any(st not in ok
+                              for st, _ in step.node_reports.values())
+            step.node_reports[node_id] = (status, exit_code)
+            if is_failure and not had_failure:
+                self.dispatch_terminate_step(job_id, step_id, now)
+            if not all(n in step.node_reports for n in step.node_ids):
+                return
+            status, exit_code = self._aggregate_step(step)
+        else:
+            fold_usage()
+        step.status = status
+        step.end_time = now
+        step.exit_code = exit_code
+        self._step_cancel_sent.pop((job_id, step_id), None)
+        if self.wal is not None:
+            self.wal.job_updated(job)
+        if step_id == 0 and not job.spec.alloc_only:
+            self._status_queue.append(StatusChange(
+                job_id, JobStatus(status.value), exit_code, now,
+                incarnation=job.requeue_count))
+            return
+        self._try_start_steps(job, now)
+
+    @staticmethod
+    def _aggregate_step(step: Step) -> tuple[StepStatus, int]:
+        """Worst status wins over the step's node reports."""
+        for st, code in step.node_reports.values():
+            if st not in (StepStatus.COMPLETED, StepStatus.CANCELLED):
+                return st, code
+        reports = list(step.node_reports.values())
+        if any(st == StepStatus.CANCELLED for st, _ in reports):
+            if (all(st == StepStatus.CANCELLED for st, _ in reports)
+                    or step.cancel_requested):
+                return StepStatus.CANCELLED, 130
+        return StepStatus.COMPLETED, 0
+
+    def _check_alloc_timeouts(self, now: float) -> None:
+        """alloc_only jobs have no batch supervisor enforcing their time
+        limit: the cycle does."""
+        for job_id in sorted(self._alloc_only):
+            job = self.running.get(job_id)
+            if job is None or job.status != JobStatus.RUNNING:
+                continue
+            if now >= self._effective_end(job, now):
+                self._teardown_alloc_job(job, now,
+                                         JobStatus.EXCEED_TIME_LIMIT, 124)
+
+    # ------------------------------------------------------------------
+    # node failure and kill intents
+    # ------------------------------------------------------------------
+
+    def on_craned_down(self, node_id: int, now: float) -> list[int]:
+        """A node died: end its jobs; a system failure requeues up to
+        ``max_requeue_count``, then holds."""
+        victim_ids = self.meta.craned_down(node_id)
+        for job_id in victim_ids:
+            job = self.running.get(job_id)
+            if job is None:
+                continue
+            # kill the gang's steps on the surviving nodes before the
+            # resources are freed (incarnation-guarded, the dead node
+            # skipped); an allocation is freed there too
+            if len(job.node_ids) > 1:
+                kill = (self.dispatch_free_alloc if job.spec.alloc_only
+                        else self.dispatch_terminate)
+                kill(job_id, now, incarnation=job.requeue_count,
+                     skip_node=node_id)
+            self._release_job_resources(job)
+            del self.running[job_id]
+            self._cancel_kill_sent.pop(job_id, None)
+            if job.cancel_requested:
+                # the kill can no longer be confirmed: honour the cancel
+                job.status = JobStatus.CANCELLED
+                job.end_time = now
+                job.exit_code = 130
+                self._finalize_terminal(job)
+                continue
+            job.reset_for_requeue()
+            if job.requeue_count > self.config.max_requeue_count:
+                job.held = True
+                job.pending_reason = PendingReason.HELD
+            self.pending[job_id] = job
+            if self.wal is not None:
+                self.wal.job_requeued(job)
+        return victim_ids
+
+    def _check_craned_timeouts(self, now: float) -> None:
+        """Ping-miss failure detection: a node that expects pings and
+        stopped sending them is declared dead."""
+        for node in self.meta.nodes.values():
+            if (node.alive and node.expect_pings
+                    and now - node.last_ping > self.config.craned_timeout):
+                self.on_craned_down(node.node_id, now)
+
+    def _renew_cancel_intents(self, now: float) -> None:
+        """Re-send the kill for running jobs (and steps) whose cancel is
+        still unconfirmed, at most every ``CANCEL_RENEW_INTERVAL``: a
+        kill that reaches a node before the launch is lost there.  Time
+        limit pushes renew every cycle until confirmed."""
+        for job_id, last in list(self._cancel_kill_sent.items()):
+            job = self.running.get(job_id)
+            if job is None or not job.cancel_requested:
+                self._cancel_kill_sent.pop(job_id, None)
+                continue
+            if now - last < self.CANCEL_RENEW_INTERVAL:
+                continue
+            self._cancel_kill_sent[job_id] = now
+            self.dispatch_terminate(job_id, now)
+        for key, last in list(self._step_cancel_sent.items()):
+            job_id, step_id = key
+            job = self.running.get(job_id)
+            step = job.steps.get(step_id) if job is not None else None
+            if (step is None or step.status.is_terminal
+                    or not step.cancel_requested):
+                self._step_cancel_sent.pop(key, None)
+                continue
+            if now - last < self.CANCEL_RENEW_INTERVAL:
+                continue
+            self._step_cancel_sent[key] = now
+            self.dispatch_terminate_step(job_id, step_id, now)
+        for job_id, (limit, _last) in list(self._limit_intents.items()):
+            job = self.running.get(job_id)
+            if job is None or job.spec.time_limit != limit:
+                self._limit_intents.pop(job_id, None)
+                continue
+            self.dispatch_change_time_limit(job_id, limit, now)
+
+    # ------------------------------------------------------------------
+    # job arrays: the template stays pending; the cycle materializes at
+    # most one child per template, bounded by max_concurrent
+    # ------------------------------------------------------------------
+
+    def _materialize_array_children(self, now: float) -> None:
+        for parent_id in sorted(self._array_templates):
+            parent = self.pending.get(parent_id)
+            if parent is None:
+                continue
+            if parent.spec.array is None or not parent.array_remaining:
+                continue
+            if parent.held:
+                continue
+            if self._deps_runnable(parent, now) is not None:
+                continue
+            limit = parent.spec.array.max_concurrent
+            live = sum(1 for c in parent.array_children
+                       if not (self.job_info(c) or parent).status
+                       .is_terminal)
+            if limit and live >= limit:
+                continue
+            task_id = parent.array_remaining.pop(0)
+            child_spec = dataclasses.replace(
+                parent.spec, array=None,
+                name=f"{parent.spec.name}_{task_id}")
+            child_id = self._next_job_id
+            self._next_job_id += 1
+            child = Job(job_id=child_id, spec=child_spec,
+                        submit_time=parent.submit_time,
+                        qos_name=parent.qos_name,
+                        qos_priority=parent.qos_priority,
+                        array_parent_id=parent.job_id,
+                        array_task_id=task_id)
+            parent.array_children.append(child_id)
+            self.pending[child_id] = child
+            if self.wal is not None:
+                self.wal.job_submitted(child)
+                self.wal.job_updated(parent)
+
+    def _on_array_child_terminal(self, child: Job) -> None:
+        """The template finishes once every task id materialized and
+        reached a terminal state: COMPLETED if all completed, else
+        FAILED."""
+        parent = self.pending.get(child.array_parent_id)
+        if parent is None:
+            return
+        if parent.array_remaining:
+            return
+        children = [self.job_info(c) for c in parent.array_children]
+        if not all(c is not None and c.status.is_terminal
+                   for c in children):
+            return
+        del self.pending[parent.job_id]
+        parent.status = (
+            JobStatus.COMPLETED
+            if all(c.status == JobStatus.COMPLETED for c in children)
+            else JobStatus.FAILED)
+        parent.end_time = child.end_time
+        self._finalize_terminal(parent)
 
     # ------------------------------------------------------------------
     # THE scheduling cycle
@@ -788,26 +1688,66 @@ class JobScheduler:
         yielded closure (the solve, the dispatch drain) is safe to run
         with the lock released.  Mid-solve mutations are caught at
         commit (the meta event window and the pending-membership and
-        spec-identity re-checks)."""
+        spec-identity re-checks).
+
+        WAL group commit: every lock-held segment of the cycle runs
+        inside one WAL group (one write and one fsync for its records),
+        flushed before each yield, so no group stays open across a lock
+        release.  The last yielded closure drains the dispatch ring, so
+        no dispatch is issued before its job's start record is
+        durable."""
+        wal = self.wal
+        self._wal_cycle_base = ((wal.fsync_total, wal.groups_total)
+                                if wal is not None else (0, 0))
+        self._wal_begin()
         try:
             started = yield from self._cycle_body(now)
             return started
         finally:
-            # a job committed to RUNNING must still get its dispatch
-            # even if the generator is closed early
+            # no WAL record may stay buffered across cycles, and a job
+            # committed to RUNNING must still get its dispatch even if
+            # the generator is closed early
+            self._wal_flush()
             self._drain_dispatch_ring()
 
+    def _wal_begin(self) -> None:
+        if self.wal is not None:
+            self.wal.begin_batch()
+
+    def _wal_flush(self) -> None:
+        if self.wal is not None:
+            self.wal.commit_batch()
+
     def _queue_dispatch(self, job: Job, node_ids: list[int]) -> None:
-        self._dispatch_ring.append((job, list(node_ids)))
+        """Ring entries capture the incarnation, the fencing epoch and
+        the current WAL seq (the durability watermark: the job's start
+        record has seq <= it) at commit time."""
+        self._dispatch_ring.append((job, list(node_ids),
+                                    job.requeue_count, self.fencing_epoch,
+                                    self.wal.seq
+                                    if self.wal is not None else 0))
 
     def _drain_dispatch_ring(self) -> int:
-        """Issue every queued dispatch in commit order."""
+        """Issue every queued dispatch in commit order.  Entries whose
+        WAL watermark is not durable are dropped and counted in
+        ``stats['dispatch_dropped']``: that happens only when the
+        group's fsync failed, and pushing work whose start record never
+        reached the disk would leave a ghost allocation after recovery
+        requeues the job."""
         ring = self._dispatch_ring
-        n = len(ring)
-        while ring:
-            job, node_ids = ring.popleft()
+        items = list(ring)
+        ring.clear()
+        if self.wal is not None:
+            durable = self.wal.durable_seq
+            kept = [it for it in items if it[4] <= durable]
+            if len(kept) != len(items):
+                self.stats["dispatch_dropped"] = (
+                    self.stats.get("dispatch_dropped", 0)
+                    + len(items) - len(kept))
+            items = kept
+        for job, node_ids, *_ in items:
             self.dispatch(job, node_ids)
-        return n
+        return len(items)
 
     def _dispatch_phase(self):
         """The cycle's final yielded closure: drain the dispatch ring."""
@@ -829,8 +1769,12 @@ class JobScheduler:
         self._cur_trace = {"now": now, "solve_ms": 0.0, "num_streams": 1,
                            "preempted": 0}
         self.process_status_changes()
+        self._check_craned_timeouts(now)
+        self._check_alloc_timeouts(now)
         self._drain_deferred_evictions(now)
+        self._renew_cancel_intents(now)
         self.meta.purge_expired_reservations(now)
+        self._materialize_array_children(now)
         t_prelude = time.perf_counter()
 
         # no-op short-circuit: if no epoch moved since the last armed
@@ -889,11 +1833,12 @@ class JobScheduler:
             state = make_cluster_state(avail, total, alive, cost0,
                                        device=self.device)
             pbatch = self._packed_batch(jobs_batch.dense(), ordered)
-            placements = yield self._traced_solve(
+            placements = yield from self._unlocked(
                 lambda: solve_packed(state, pbatch, max_nodes=max_nodes)[0])
             started = self._commit(ordered, placements, now,
                                    tasks=placements.tasks)
             started += self._try_preemption(ordered, now)
+            self._wal_flush()
             self._record_cycle_stats(t0, candidates, started,
                                      time.perf_counter(), "packed")
             if self._dispatch_ring:
@@ -912,12 +1857,13 @@ class JobScheduler:
                                        device=self.device)
             dense = jobs_batch.dense()
             levels = topo.levels(self.device)
-            placements, _, info = yield self._traced_solve(
+            placements, _, info = yield from self._unlocked(
                 lambda: solve_greedy_topo(state, dense, levels,
                                           max_nodes=max_nodes))
             self._note_topo(topo, ordered, info)
             started = self._commit(ordered, placements, now)
             started += self._try_preemption(ordered, now)
+            self._wal_flush()
             self._record_cycle_stats(t0, candidates, started,
                                      time.perf_counter(), "topo")
             if self._dispatch_ring:
@@ -930,6 +1876,7 @@ class JobScheduler:
                     ordered, jobs_batch, avail, total, alive, cost0,
                     max_nodes, now)
                 started += self._try_preemption(ordered, now)
+                self._wal_flush()
                 self._record_cycle_stats(t0, candidates, started,
                                          time.perf_counter(),
                                          "backfill-split")
@@ -938,7 +1885,7 @@ class JobScheduler:
                 return started
             state = self._timed_state(now, avail, total, alive, cost0)
             tbatch = self._timed_batch(jobs_batch.dense())
-            placements = yield self._traced_solve(
+            placements = yield from self._unlocked(
                 lambda: solve_backfill(state, tbatch,
                                        edges=self._grid_edges,
                                        max_nodes=max_nodes)[0])
@@ -946,7 +1893,7 @@ class JobScheduler:
                                    placements.start_bucket)
             solver_name = "backfill"
         else:
-            placements, solver_name = yield self._traced_solve(
+            placements, solver_name = yield from self._unlocked(
                 lambda: self._solve_gpu(
                     avail, total, alive, cost0, jobs_batch, max_nodes,
                     resident_ok=True))
@@ -954,6 +1901,7 @@ class JobScheduler:
         started += self._try_preemption(ordered, now)
         # double buffer: copy the rows this commit dirtied ahead of the
         # next cycle's resident patch
+        self._wal_flush()
         self._resident.stage()
         self._record_cycle_stats(t0, candidates, started,
                                  time.perf_counter(), solver_name)
@@ -978,7 +1926,7 @@ class JobScheduler:
         tail_batch = jobs_batch.with_valid(jobs_batch.valid
                                            & (rows >= bf_max))
         state = self._timed_state(now, avail, total, alive, cost0)
-        placements, tstate = yield self._traced_solve(
+        placements, tstate = yield from self._unlocked(
             lambda: solve_backfill(state, head_batch,
                                    edges=self._grid_edges,
                                    max_nodes=max_nodes), part="head")
@@ -996,7 +1944,7 @@ class JobScheduler:
                                    tail_batch, max_nodes,
                                    resident_ok=False)
 
-        out, _ = yield self._traced_solve(tail_solve, part="tail")
+        out, _ = yield from self._unlocked(tail_solve, part="tail")
         started += self._commit(tail, Placements(
             placed=out.placed[bf_max:], nodes=out.nodes[bf_max:],
             reason=out.reason[bf_max:]), now)
@@ -1096,6 +2044,15 @@ class JobScheduler:
         self._cur_trace["num_streams"] = num_streams
         return placements, ("cuda-stream" if num_streams > 1 else "cuda")
 
+    def _unlocked(self, fn, part: str | None = None):
+        """Yield a solve closure to run with the caller's lock released:
+        the cycle's open WAL group is flushed first and a new one opened
+        once the solve is back."""
+        self._wal_flush()
+        out = yield self._traced_solve(fn, part)
+        self._wal_begin()
+        return out
+
     def _traced_solve(self, fn, part: str | None = None):
         """Wrap a yielded solve closure: time it, settling the device
         work before the clock stops (otherwise the commit's read-back
@@ -1148,6 +2105,12 @@ class JobScheduler:
             "h2d_bytes": res.last_h2d_bytes if mode else 0,
             "patch_overlap": bool(res.last_overlap) if mode else False,
         }
+        wal = self.wal
+        if wal is not None:
+            base_fsync, base_groups = self._wal_cycle_base
+            self.stats["last_cycle"].update(
+                wal_fsyncs=wal.fsync_total - base_fsync,
+                wal_groups=wal.groups_total - base_groups)
         # backfill cycles: jobs holding a future start, and a split
         # cycle's solve time by part; preemption and topology counts
         for key in ("backfilled", "solve_head_ms", "solve_tail_ms",
@@ -1189,12 +2152,23 @@ class JobScheduler:
         return [pending[int(j)] for j in jid[cand_rows]]
 
     def _pending_candidates_rebuild(self, now: float) -> list[Job]:
-        """Skip held jobs and jobs whose licenses are short (the gates a
-        job of the port can hit)."""
+        """Skip array templates, held jobs, jobs before their begin time,
+        jobs whose dependencies are unmet and jobs whose licenses are
+        short."""
         out = []
         for job in self.pending.values():  # id order == insertion order
+            if job.spec.array is not None:
+                continue  # templates never run; children materialize
             if job.held:
                 job.pending_reason = PendingReason.HELD
+                continue
+            if job.spec.begin_time is not None and (
+                    job.spec.begin_time > now):
+                job.pending_reason = PendingReason.BEGIN_TIME
+                continue
+            dep_reason = self._deps_runnable(job, now)
+            if dep_reason is not None:
+                job.pending_reason = dep_reason
                 continue
             if job.spec.licenses and not self.licenses.sufficient(
                     job.spec.licenses):
@@ -1308,16 +2282,30 @@ class JobScheduler:
         if self._mask_cache_epoch != self.meta.resv_epoch:
             self._mask_cache.clear()
             self._mask_cache_epoch = self.meta.resv_epoch
-        key = (job.spec.partition, tuple(job.spec.include_nodes),
-               tuple(job.spec.exclude_nodes), len(self.meta.nodes))
+        spec = job.spec
+        key = (spec.partition, tuple(spec.include_nodes),
+               tuple(spec.exclude_nodes), len(self.meta.nodes),
+               spec.reservation)
         mask = self._mask_cache.get(key)
         if mask is None:
             mask = self.meta.partition_mask(
-                job.spec.partition, job.spec.include_nodes,
-                job.spec.exclude_nodes)
+                spec.partition, spec.include_nodes, spec.exclude_nodes)
+            if spec.reservation:
+                # a reservation's jobs run only inside its carve-out
+                resv = self.meta.reservations.get(spec.reservation)
+                rmask = np.zeros(len(self.meta.nodes), bool)
+                if resv is not None:
+                    rmask[list(resv.node_ids)] = True
+                mask = mask & rmask
             self._mask_cache[key] = mask
-        # jobs stay clear of any reservation whose window overlaps the
-        # job's would-be runtime [now, now + limit]
+        if spec.reservation:
+            # outside the reservation's window the job places nowhere
+            resv = self.meta.reservations.get(spec.reservation)
+            if resv is None or not resv.active(now):
+                return np.zeros(len(self.meta.nodes), bool)
+            return mask
+        # other jobs stay clear of any reservation whose window overlaps
+        # the job's would-be runtime [now, now + limit]
         if self.meta.reservations:
             mask = mask.copy()
             end = now + job.spec.time_limit
@@ -1345,6 +2333,9 @@ class JobScheduler:
         spec = job.spec
         base = (spec.partition, tuple(spec.include_nodes),
                 tuple(spec.exclude_nodes), spec.reservation)
+        if spec.reservation:
+            resv = self.meta.reservations.get(spec.reservation)
+            return base + (resv is not None and resv.active(now),)
         if not self.meta.reservations:
             return base
         end = now + spec.time_limit
@@ -1547,7 +2538,11 @@ class JobScheduler:
             bad = nodes_mat[rejected_rows]
             self._resident.mark_diverged(np.unique(bad[bad >= 0]))
         self._ledger_add_batch(started_jobs, now)
+        wal = self.wal
         for job in started_jobs:
+            if wal is not None:
+                wal.job_started(job)   # buffered into the cycle's group
+            self._trigger_dep_event(job)   # AFTER edges fire on start
             self._queue_dispatch(job, job.node_ids)
         return started
 
@@ -1860,6 +2855,9 @@ class JobScheduler:
         self._init_steps(job, now)
         self.running[job.job_id] = job
         self._ledger_add(job, now)
+        if self.wal is not None:
+            self.wal.job_started(job)
+        self._trigger_dep_event(job)
         self._queue_dispatch(job, chosen)
         return True
 
@@ -1889,10 +2887,12 @@ class JobScheduler:
             self._cur_trace.get("preempted", 0) + 1)
         self.stats["jobs_preempted_total"] = (
             self.stats.get("jobs_preempted_total", 0) + 1)
-        self.dispatch_terminate(victim_id, now,
-                                incarnation=victim.requeue_count)
+        kill = (self.dispatch_free_alloc if victim.spec.alloc_only
+                else self.dispatch_terminate)
+        kill(victim_id, now, incarnation=victim.requeue_count)
         self._release_job_resources(victim)
         del self.running[victim_id]
+        self._cancel_kill_sent.pop(victim_id, None)
         if victim.cancel_requested:
             # the user already cancelled it (kill in flight): honour the
             # cancel instead of requeueing it as preempted
@@ -1908,8 +2908,124 @@ class JobScheduler:
                 victim.held = True
                 victim.pending_reason = PendingReason.HELD
             self.pending[victim_id] = victim
+            if self.wal is not None:
+                self.wal.job_requeued(victim)
         else:  # cancel
             victim.status = JobStatus.CANCELLED
             victim.end_time = now
             victim.exit_code = 143
             self._finalize_terminal(victim)
+
+    # ------------------------------------------------------------------
+    # recovery: pending jobs re-queue, running and suspended jobs are
+    # re-adopted with their resources re-applied to the ledger
+    # ------------------------------------------------------------------
+
+    def _readopt(self, job: Job, now: float) -> bool:
+        """Take a replayed RUNNING or SUSPENDED job's allocation, license
+        seats and QoS run usage again; False when its nodes no longer
+        have room (a node vanished while the controller was down)."""
+        if not self.meta.malloc_resource(job.job_id, job.node_ids,
+                                         self._job_alloc(job)):
+            return False
+        if (job.status == JobStatus.RUNNING and not job.spec.alloc_only
+                and 0 not in job.steps):
+            # a record from before the step model: re-create the batch
+            # step so the live supervisors' reports land
+            self._init_steps(job, job.start_time or now)
+        self.licenses.restore(job.spec.licenses or {})
+        if self.account_meta is not None and job.qos_name:
+            self.account_meta.restore_run(job.spec.user, job.spec.account,
+                                          job.qos_name, job.spec)
+            job.run_usage_taken = True
+        self.running[job.job_id] = job
+        self._ledger_add(job, now)
+        return True
+
+    def recover(self, replayed: dict, now: float = 0.0) -> None:
+        """Rebuild the queues from a WAL replay
+        (``WriteAheadLog.replay``).  Jobs are classified by their
+        recorded status, so any durable mutation (cancel intent, hold)
+        recovers too: terminal -> history; RUNNING -> re-adopted with
+        its implicit step 0 and a re-sent kill for a cancel intent;
+        SUSPENDED -> re-adopted, still holding its allocation; anything
+        else -> pending.  A job whose nodes are gone requeues, unless it
+        was being cancelled."""
+        for job_id, (_event, job) in sorted(replayed.items()):
+            self._next_job_id = max(self._next_job_id, job_id + 1)
+            if not job.status.is_terminal and (
+                    self.account_meta is not None and job.qos_name
+                    and job.array_parent_id is None):
+                self.account_meta.restore_submit(
+                    job.spec.user, job.spec.account, job.qos_name)
+            if job.status.is_terminal:
+                self.history[job_id] = job
+                if self.archive is not None and job_id not in self.archive:
+                    # a crash between finalize and the archive write: the
+                    # WAL tombstone still has the record
+                    self.archive.append(job)
+            elif job.status == JobStatus.RUNNING:
+                if self._readopt(job, now):
+                    if job.cancel_requested:
+                        # the kill may have been lost with the crash:
+                        # re-send it and keep renewing until confirmed
+                        self._cancel_kill_sent[job_id] = now
+                        self.dispatch_terminate(job_id, now)
+                elif job.cancel_requested:
+                    job.status = JobStatus.CANCELLED
+                    job.end_time = now
+                    self._finalize(job)  # frees the submit slot too
+                else:
+                    job.reset_for_requeue()
+                    self.pending[job_id] = job
+            elif job.status == JobStatus.SUSPENDED:
+                if not self._readopt(job, now):
+                    job.reset_for_requeue()
+                    self.pending[job_id] = job
+            else:
+                job.status = JobStatus.PENDING
+                self.pending[job_id] = job
+        # re-derive waiting edges against each dependee's current state
+        # (events between the last record and the crash would otherwise
+        # be lost), then rebuild the dependents map
+        for job in self.pending.values():
+            for dep in job.spec.dependencies:
+                if job.dep_state.get(dep.job_id) is not None:
+                    continue
+                target = self.job_info(dep.job_id)
+                if target is None:
+                    job.dep_state[dep.job_id] = DEP_NEVER
+                    continue
+                sat = self._dep_satisfied_time(dep, target)
+                job.dep_state[dep.job_id] = sat
+                if sat is None:
+                    self._dependents.setdefault(dep.job_id, set()).add(
+                        job.job_id)
+        # the rows written as jobs were inserted predate the dependency
+        # re-derivation
+        for job in self.pending.values():
+            self._table_upsert(job)
+
+    def rebuild_device_state(self) -> None:
+        """Drop every device-side and incremental cache after
+        ``recover``: the ``[C, N]`` class-row table, the per-job row and
+        allocation caches, the dense mask cache, the PendingTable (built
+        again from the pending jobs), the delta snapshot, the no-op
+        fingerprint and the resident cluster state, so the first cycle
+        pays one full rebuild."""
+        self._mask_table = _MaskTable()
+        self._mask_cache.clear()
+        self._mask_cache_epoch = -1
+        for col in (self.pending, self.running):
+            for job in col.values():
+                job.row_cache = None
+                job.alloc_cache = None
+        self._ptable = PendingTable(self.meta.layout.num_dims)
+        for job in self.pending.values():
+            self._table_upsert(job)
+        self.meta._snap = None
+        self._noop_fp = None
+        self._cand_rows = None
+        self._ordered_rows = None
+        self._run_attrs = None
+        self._resident.invalidate()

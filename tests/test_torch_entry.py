@@ -3,10 +3,12 @@ refuse loudly what the port does not carry yet.
 
 Here there is no CUDA device, so every entry point given no ``device``
 must raise; with ``device="cpu"`` it runs.  Out-of-slice configuration
-and job specs raise ``NotImplementedError`` naming their ROADMAP item
-instead of being accepted or rejected as invalid; what the port carries
-(packed and exclusive jobs, licenses, accounts, topologies, preemption
-modes) is accepted.
+(the solver backends still outside the port) raises
+``NotImplementedError`` naming its ROADMAP item instead of being
+accepted or rejected as invalid; what the port carries (packed and
+exclusive jobs, licenses, accounts, topologies, preemption modes,
+reservations named by a job, arrays, dependencies, begin times,
+allocation-only jobs and submit hooks) is accepted.
 """
 
 import numpy as np
@@ -104,28 +106,51 @@ def test_config_keeps_the_reference_defaults():
 _RES = ResourceSpec(cpu=1.0, mem_bytes=1 << 30)
 
 
-@pytest.mark.parametrize("spec", [
-    JobSpec(res=_RES, reservation="r"),
-    JobSpec(res=_RES, array=ArraySpec(0, 3)),
-    JobSpec(res=_RES, dependencies=(Dependency(1),)),
-    JobSpec(res=_RES, begin_time=10.0),
-    JobSpec(res=_RES, alloc_only=True),
+@pytest.mark.parametrize("spec,started", [
+    (JobSpec(res=_RES, reservation="r"), True),
+    (JobSpec(res=_RES, array=ArraySpec(0, 3)), False),
+    (JobSpec(res=_RES, dependencies=(Dependency(1),)), False),
+    (JobSpec(res=_RES, begin_time=10.0), False),
+    (JobSpec(res=_RES, alloc_only=True), True),
 ], ids=["reservation", "array", "dependencies", "begin_time",
         "alloc_only"])
-def test_out_of_slice_spec_raises(spec):
-    """The specs still outside the port name their ROADMAP item."""
-    sched = JobScheduler(_meta(), SchedulerConfig(backfill=False),
+def test_out_of_slice_spec_raises(spec, started):
+    """The specs that were outside the port until the lifecycle slice
+    are accepted now: a job in a reservation and an allocation start at
+    once; an array template stays pending while its first child starts;
+    a dependent waits for job 1 and a begin time for its edge."""
+    meta = _meta()
+    sched = JobScheduler(meta, SchedulerConfig(backfill=False),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A8"):
-        sched.submit(spec, now=0.0)
-    assert not sched.pending
+    assert meta.create_reservation("r", "default", ["n0", "n1"], 0.0,
+                                   100.0) is not None
+    first = sched.submit(JobSpec(res=_RES, time_limit=50), now=0.0)
+    jid = sched.submit(spec, now=0.0)
+    assert jid == first + 1
+    out = sched.schedule_cycle(now=1.0)
+    assert (jid in out) == started
+    if spec.array is not None:
+        assert len(out) == 2 and sched.job_info(out[1]).array_parent_id \
+            == jid
+    if spec.dependencies:
+        assert sched.pending[jid].pending_reason.name == "DEPENDENCY"
+    if spec.begin_time is not None:
+        assert sched.pending[jid].pending_reason.name == "BEGIN_TIME"
+        assert sched.schedule_cycle(now=10.0) == [jid]
 
 
 def test_out_of_slice_scheduler_features_raise():
+    """A submit hook is accepted: it rewrites the spec or rejects it."""
+    import dataclasses
+
     meta = _meta()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A8"):
-        JobScheduler(meta, SchedulerConfig(backfill=False), device="cpu",
-                     submit_hook=lambda spec: spec)
+    sched = JobScheduler(
+        meta, SchedulerConfig(backfill=False), device="cpu",
+        submit_hook=lambda spec: (None if spec.name == "no" else
+                                  dataclasses.replace(spec, time_limit=9)))
+    assert sched.submit(JobSpec(res=_RES, name="no"), now=0.0) == 0
+    jid = sched.submit(JobSpec(res=_RES), now=0.0)
+    assert jid > 0 and sched.pending[jid].spec.time_limit == 9
 
 
 @pytest.mark.parametrize("spec", [

@@ -3,9 +3,11 @@
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
 ``jaxlib``, ``flax`` and the top-level ``cranesched_tpu`` (not
 ``cranesched_tpu_torch``), imports every module of the port (the
-topology, hostlist, accounting, license, packing and preemption modules
-among them) and runs a 16-node scheduling cycle on the CPU with a
-topology, a license and a packed job.  ``chip_smoke.py`` is checked by an
+topology, hostlist, accounting, license, packing, preemption, WAL,
+archive, accounts-store and metrics modules among them), runs a 16-node
+scheduling cycle on the CPU with a topology, a license, a packed job, a
+dependency, an array and a WAL, and recovers a second scheduler from
+that WAL.  ``chip_smoke.py`` is checked by an
 AST scan of its imports.
 """
 
@@ -62,6 +64,14 @@ _CHILD = textwrap.dedent("""
         meta.craned_up(i)
     sched = JobScheduler(meta, SchedulerConfig(backfill=False),
                          device="cpu")
+    import os, tempfile
+    from cranesched_tpu_torch.ctld.archive import JobArchive
+    from cranesched_tpu_torch.ctld.defs import ArraySpec, Dependency
+    from cranesched_tpu_torch.ctld.wal import WriteAheadLog
+    tmp = tempfile.mkdtemp()
+    wal_path = os.path.join(tmp, "w.wal")
+    sched.wal = WriteAheadLog(wal_path, fsync=False)
+    sched.attach_archive(JobArchive(os.path.join(tmp, "h.sqlite")))
     sim = SimCluster(sched)
     sim.wire(sched)
     for j in range(40):
@@ -69,6 +79,10 @@ _CHILD = textwrap.dedent("""
             res=ResourceSpec(cpu=2.0, mem_bytes=1 << 30),
             partition="p%d" % (j % 2), node_num=1 + j % 2,
             sim_runtime=30.0), now=0.0) > 0
+    assert sched.submit(JobSpec(
+        res=ResourceSpec(cpu=1.0, mem_bytes=1 << 30), partition="p1",
+        array=ArraySpec(0, 2), dependencies=(Dependency(1),),
+        sim_runtime=5.0), now=0.0) > 0
     # a topology, licenses and a packed job take the new routes
     from cranesched_tpu_torch.topo import Topology
     meta.set_topology(Topology.uniform_blocks(16, 4))
@@ -82,6 +96,12 @@ _CHILD = textwrap.dedent("""
     end = sim.run_until_drained(start=2.0)
     assert not sched.pending and not sched.running
     assert all((n.avail == n.total).all() for n in meta.nodes.values())
+    sched.wal.close()
+    again = JobScheduler(MetaContainer(), SchedulerConfig(backfill=False),
+                         device="cpu")
+    again.recover(WriteAheadLog.replay(wal_path), now=end)
+    again.rebuild_device_state()
+    assert len(again.history) == len(sched.history) == 45
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("OK", len(started), end)
@@ -96,7 +116,8 @@ def test_port_imports_without_jax_and_runs_a_cycle():
     assert "cranesched_tpu_torch.tools.kattr" in mods
     for mod in ("topo", "topo.model", "topo.place", "utils.hostlist",
                 "ctld.accounting", "ctld.licenses", "models.packing",
-                "models.preempt", "models.preempt_time"):
+                "models.preempt", "models.preempt_time", "ctld.wal",
+                "ctld.archive", "ctld.acct_store", "obs", "obs.metrics"):
         assert f"cranesched_tpu_torch.{mod}" in mods, mod
     code = _CHILD.format(blocked=BLOCKED, mods=mods)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
