@@ -113,11 +113,33 @@ Phases (any failure exits non-zero and prints no result):
    (the twin's are put in id order). WAL records, bytes, fsyncs and
    groups per step, the recovery's seconds and each cycle's commit_ms
    (beside phase 6's cold commit without a WAL) are printed;
-11. the CPU checks: every plain version and CPU replay above runs in
+11. the observability planes and the JAX package's solver names (the
+   job trace is on in every phase, ``SchedulerConfig``'s default): (a)
+   the disjoint cell of 5: a cold cycle, then two warm cycles under the
+   scheduler's ``torch.profiler`` window (``profiler_window.request``;
+   its chrome trace goes to ``profiles/capture-*/``, git-ignored), and
+   a third outside it for the times; the default cell's warm split
+   cycle under the window too.  Per cycle, from the trace: the share of
+   the cycle's wall time the card was busy (the union of its kernel,
+   memcpy and memset intervals), the 5 device operations that took the
+   most time and the 5 longest idle gaps with the ``crane:*`` span or
+   host phase each falls in; the trace-ring row (no builds on a warm
+   cycle, the card's memory); the first profiled cycle's kernel output
+   against the plain version; (b) the default cell's cold cycle with
+   ``job_trace`` on and off: ``commit_ms``, ``total_ms``, the recorder's
+   stats, the introspection plane's self time, the same decisions; (c)
+   ``explain_pending`` on ``EXPLAIN_JOBS`` pending jobs of the warm
+   cycle, each giving the job's pending reason, and a stall drill of
+   the flight recorder (fires once, with stacks and one event); (d) the
+   disjoint cold cycle with ``solver="native"`` and ``"auto"`` (the C++
+   solver, built with g++ into ``build/native/``) equal to the
+   ``"cuda"`` cold cycle of (a) from the same seed;
+12. the CPU checks: every plain version and CPU replay above runs in
    one of ``CPU_WORKERS`` worker processes beside the card's phases;
    the script waits for all of them and fails on any failure;
-12. one JSON line describing every kernel, then the card line, then the
-   result line ``{"ok": true, "device": {...}}``.
+13. one JSON line each for the cycles, the lifecycle, the obs phase and
+   the native solver, one describing every kernel, then the card line,
+   then the result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.  The kernel build goes to
 ``build/kernels/`` (see ``cranesched_tpu_torch/kernels/build.py``).
@@ -125,6 +147,7 @@ It imports nothing of the JAX package.  The kernel build goes to
 
 from __future__ import annotations
 
+import gc
 import json
 import sys
 import time
@@ -225,7 +248,7 @@ def host(*ts):
 def plain_check(label, want, avail, total, alive, cost, batch, jc,
                 rows_np, max_nodes, perm=None):
     """(A worker's job.)  A recorded greedy solve (inputs as the scheduler
-    handed them to ``_solve_gpu``, outputs ``want`` = host (placed,
+    handed them to ``_immediate_solve``, outputs ``want`` = host (placed,
     nodes, reason)) against the kernel's plain version on every job: the
     same entry point and stream plan on CPU tensors, where it runs
     ``greedy_place_plain``.  ``perm`` presents the node axis block-major,
@@ -822,7 +845,7 @@ def phase_cycle(overlap: bool):
 
     # record the first solve's inputs and outputs for the plain check
     record = {}
-    solve = sched._solve_gpu
+    solve = sched._immediate_solve
 
     def spy(avail, total, alive, cost0, batch, max_nodes, resident_ok=False):
         out = solve(avail, total, alive, cost0, batch, max_nodes,
@@ -838,7 +861,7 @@ def phase_cycle(overlap: bool):
                                  out[0].reason)
         return out
 
-    sched._solve_gpu = spy
+    sched._immediate_solve = spy
     want = "cuda" if overlap else "cuda-stream"
     rows = []
     now = 100.0
@@ -912,7 +935,7 @@ def phase_backfill():
     record = {}
     cur = {"cycle": 0}
     timed_state, timed_batch = sched._timed_state, sched._timed_batch
-    commit, solve = sched._commit, sched._solve_gpu
+    commit, solve = sched._commit, sched._immediate_solve
 
     def spy_state(*args):
         state = timed_state(*args)
@@ -957,7 +980,7 @@ def phase_backfill():
         return out
 
     sched._timed_state, sched._timed_batch = spy_state, spy_batch
-    sched._commit, sched._solve_gpu = spy_commit, spy_solve
+    sched._commit, sched._immediate_solve = spy_commit, spy_solve
     big = JobSpec(res=ResourceSpec(cpu=32.0, mem_bytes=1 << 30),
                   node_num=8, time_limit=600, partition="p0",
                   qos_priority=1, sim_runtime=300.0)
@@ -1080,7 +1103,7 @@ def phase_topo_single():
           f"{len(topo.upper_levels[0][1])} upper switches, "
           f"{len(sched.pending)} pending)", flush=True)
     record = {}
-    solve = sched._solve_gpu
+    solve = sched._immediate_solve
 
     def spy(avail, total, alive, cost, batch, max_nodes, resident_ok=False):
         record["in"] = (avail.cpu().clone(), total.copy(), alive.copy(),
@@ -1094,7 +1117,7 @@ def phase_topo_single():
         record["out"] = host(out[0].placed, out[0].nodes, out[0].reason)
         return out
 
-    sched._solve_gpu = spy
+    sched._immediate_solve = spy
     # the main path's launch count: zeroed just before, read just after
     g.greedy_place.launches = 0
     started, last = cycle_once(sched, 100.0, label)
@@ -1527,7 +1550,7 @@ def life_state(sched, archive_ids):
 def record_tail(sched, record, key):
     """Record every tail solve's inputs and outputs under ``key()`` (the
     greedy kernel's launches of a split backfill cycle)."""
-    solve = sched._solve_gpu
+    solve = sched._immediate_solve
 
     def spy(avail, total, alive, cost, batch, max_nodes, resident_ok=False):
         ins = (avail.cpu().clone(), total.copy(), alive.copy(),
@@ -1541,7 +1564,7 @@ def record_tail(sched, record, key):
                          ins)
         return out
 
-    sched._solve_gpu = spy
+    sched._immediate_solve = spy
 
 
 def phase_lifecycle(ref_commit_ms):
@@ -1994,6 +2017,398 @@ def phase_lifecycle(ref_commit_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# 11. the observability planes and the JAX package's solver names
+# ---------------------------------------------------------------------------
+
+# chrome-trace categories of work on the card
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# explain_pending is held against the pending reason of this many jobs
+EXPLAIN_JOBS = 200
+
+
+def _union(intervals):
+    """Sorted, merged ``[start, end)`` intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def window_report(events, label, wall0, stamps):
+    """One cycle of a profiler capture (``events``: the chrome trace's
+    ``traceEvents``): the cycle is the ``crane:cycle:<label>`` span; the
+    card's work inside it is the union of its kernel, memcpy and memset
+    intervals.  Returns the busy share, the 5 device operations that took
+    the most time and the 5 longest idle gaps with the ``crane:*`` span
+    or host phase (from the flight recorder's stamps ``stamps``, mapped
+    onto the trace's clock through the cycle span's start ``wall0``)
+    each falls in."""
+    span = [e for e in events if e.get("ph") == "X"
+            and e.get("cat") == "user_annotation"
+            and e.get("name") == f"crane:cycle:{label}"]
+    check(len(span) == 1, f"obs {label}: {len(span)} cycle spans in the "
+          "capture")
+    w0 = float(span[0]["ts"])
+    w1 = w0 + float(span[0]["dur"])
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in DEVICE_CATS
+           and float(e["ts"]) < w1 and float(e["ts"]) + float(e["dur"]) > w0]
+    check(dev, f"obs {label}: the capture shows no work on the card")
+    busy = _union([max(float(e["ts"]), w0),
+                   min(float(e["ts"]) + float(e["dur"]), w1)] for e in dev)
+    busy_us = sum(b - a for a, b in busy)
+    by_name = {}
+    for e in dev:
+        n = e["name"][:72]
+        ms, k = by_name.get(n, (0.0, 0))
+        by_name[n] = (ms + float(e["dur"]) / 1e3, k + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    solves = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                     e["name"]) for e in events
+                    if e.get("ph") == "X"
+                    and e.get("cat") == "user_annotation"
+                    and str(e.get("name", "")).startswith("crane:solve:")
+                    and w0 <= float(e["ts"]) < w1)
+    offset = w0 - wall0 * 1e6
+    at = {}
+    for st in stamps:
+        at.setdefault(st["phase"], st["t"] * 1e6 + offset)
+    first_solve = solves[0][0] if solves else w1
+
+    def phase_of(m):
+        for a, b, name in solves:
+            if a <= m < b:
+                return name
+        if m < at.get("prelude", w0):
+            return "drain"
+        if m < first_solve:
+            return "prelude"
+        if m < at.get("dispatch", w1):
+            return "commit"
+        return "dispatch"
+
+    gaps, cur = [], w0
+    for a, b in busy + [[w1, w1]]:
+        if a > cur:
+            gaps.append((cur, a))
+        cur = max(cur, b)
+    gaps = sorted(gaps, key=lambda g: g[0] - g[1])[:5]
+    return {
+        "cycle_ms": (w1 - w0) / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / (w1 - w0),
+        "device_idle_share": 1.0 - busy_us / (w1 - w0),
+        "device_ops": len(dev),
+        "top_ops": [{"name": n, "ms": ms, "count": k}
+                    for n, (ms, k) in top],
+        "top_gaps": [{"ms": (b - a) / 1e3, "in": phase_of((a + b) / 2)}
+                     for a, b in gaps],
+        "solve_spans": [{"name": n, "ms": (b - a) / 1e3}
+                        for a, b, n in solves],
+    }
+
+
+def profiled_cycles(sched, sim, submit, now, labels, step=900.0):
+    """Run one cycle per label under ``sched.profiler_window``, each
+    inside a ``crane:cycle:<label>`` span; returns the per-cycle reports,
+    the time reached and the capture's directory and size.  The window
+    is armed for one tick more than there are cycles and ticked once by
+    hand before the first (the capture must be running when the first
+    cycle's span opens) and once after the last (the boundary that stops
+    it); each cycle ticks it once at its start."""
+    from torch.profiler import record_function
+
+    from cranesched_tpu_torch.obs import introspect
+
+    ok, d = sched.profiler_window.request(len(labels) + 1)
+    check(ok, f"profiler window refused: {d}")
+    sched.profiler_window.tick()   # starts the capture
+    marks = []
+    for label in labels:
+        now += step
+        sim.advance_to(now)
+        submit(TOPUP_JOBS, now)
+        with record_function(f"crane:cycle:{label}"):
+            wall0 = time.time()
+            started = sched.schedule_cycle(now=now)
+        check(started, f"obs {label}: placed nothing")
+        stamps = [st for st in sched.flight.report(tail=64)["phases"]
+                  if st["t"] >= wall0]
+        marks.append((label, wall0, stamps,
+                      dict(sched.cycle_trace.snapshot()[-1]),
+                      dict(sched.stats["last_cycle"])))
+    sched.profiler_window.tick()   # the boundary after the last: stop
+    st = sched.profiler_window.status()
+    check(st["captures_done"] >= 1 and not st["last_error"]
+          and st["last_capture"] == d,
+          f"profiler window: {st}")
+    path = f"{d}/{introspect.TRACE_FILE}"
+    import os
+
+    size = os.path.getsize(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    out = []
+    for label, wall0, stamps, row, last in marks:
+        rep = window_report(events, label, wall0, stamps)
+        rep.update(trace_row={k: row[k] for k in (
+            "solver", "total_ms", "solve_ms", "commit_ms", "recompiles",
+            "device_bytes", "device_peak_bytes", "device_buffers",
+            "candidates", "placed") if k in row},
+            label=label, placed=last["started"])
+        check(row["recompiles"] == 0, f"obs {label}: a warm cycle paid "
+              f"{row['recompiles']} builds")
+        check(row["device_bytes"] > 0 and row["device_peak_bytes"]
+              >= row["device_bytes"], f"obs {label}: device memory {row}")
+        print(f"[obs:{label}] device busy {rep['device_busy_share']:.4f} "
+              f"of {rep['cycle_ms']:.1f} ms under the window "
+              f"({rep['device_ops']} device ops); top ops "
+              f"{json.dumps(rep['top_ops'])}; longest idle gaps "
+              f"{json.dumps(rep['top_gaps'])}; trace row "
+              f"{json.dumps(rep['trace_row'])}", flush=True)
+        out.append(rep)
+    del events
+    return out, now, {"capture": d, "bytes": size}
+
+
+def cycle_outcome(sched, started):
+    """What a twin comparison holds equal: the started jobs in order,
+    their nodes, every pending job's reason and the ledger."""
+    meta = sched.meta
+    return (list(started),
+            {j: list(sched.running[j].node_ids) for j in started},
+            {j: job.pending_reason.value
+             for j, job in sched.pending.items()},
+            np.stack([meta.nodes[i].avail for i in sorted(meta.nodes)]))
+
+
+def same_outcome(label, a, b):
+    check(a[0] == b[0], f"{label}: started jobs differ")
+    check(a[1] == b[1], f"{label}: node assignments differ")
+    check(a[2] == b[2], f"{label}: pending reasons differ")
+    check(np.array_equal(a[3], b[3]), f"{label}: post-cycle ledger differs")
+
+
+def stall_drill(sched):
+    """The flight recorder's stall sentry around a deliberately slow
+    closure: it fires once, with every thread's stack and one
+    ``flight_stall`` event."""
+    fr = sched.flight
+    before = fr.stalls_total
+    n_events = len(sched.events.since(type="flight_stall"))
+    fr.stamp("drill")
+    fr.arm(0.2, label="drill")
+
+    def slow():
+        deadline = time.monotonic() + 5.0
+        while fr.stalls_total == before and time.monotonic() < deadline:
+            time.sleep(0.02)
+        time.sleep(0.3)   # past the deadline: the sentry must not refire
+
+    slow()
+    fr.disarm()
+    stall = fr.report()["last_stall"]
+    fired = fr.stalls_total - before
+    ev = sched.events.since(type="flight_stall")[n_events:]
+    check(fired == 1, f"stall drill: the sentry fired {fired} times")
+    check(stall is not None and stall["label"] == "drill"
+          and stall["stacks"], "stall drill: no stacks captured")
+    check(len(ev) == 1 and "drill stalled; last phase drill" in
+          ev[0]["detail"], f"stall drill: events {ev}")
+    return {"fired": fired, "threads": len(stall["stacks"]),
+            "event": ev[0]["detail"]}
+
+
+def phase_obs():
+    """The observability planes on the main paths: (a) the immediate
+    cycle on the disjoint cell under the profiler window (two warm
+    cycles, after an unprofiled cold one), and the default cell's warm
+    split cycle under it; (b) the default cell's cold cycle with the job
+    trace on and off; (c) explain_pending on pending jobs of the warm
+    cycle and a stall drill.  Returns the phase's report, the greedy
+    kernel's launches on its paths, and the disjoint cell's cold-cycle
+    outcome (the twin of phase_native)."""
+    from cranesched_tpu_torch.ctld import SchedulerConfig
+    from cranesched_tpu_torch.models import gpu_solver as g
+    from cranesched_tpu_torch.obs import introspect
+
+    rep = {}
+    # (a) the immediate cycle under the window
+    label = "obs-disjoint"
+    rng = np.random.default_rng(1)
+    gc.collect()
+    t0 = time.perf_counter()
+    sched, sim, submit = build_cell(rng, False,
+                                    SchedulerConfig(backfill=False))
+    submit(N_JOBS, 0.0)
+    print(f"[cycle:{label}] setup {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    record = {}
+    solve = sched._immediate_solve
+
+    def spy(avail, total, alive, cost0, batch, max_nodes, resident_ok=False):
+        out = solve(avail, total, alive, cost0, batch, max_nodes,
+                    resident_ok=resident_ok)
+        if "in" not in record and record.get("armed"):
+            record["in"] = (avail.copy(), total.copy(), alive.copy(),
+                            cost0.copy(), host(batch.req, batch.node_num,
+                                               batch.time_limit,
+                                               batch.valid),
+                            batch.job_class_np.copy(),
+                            batch.class_rows_np.copy(), max_nodes)
+            record["out"] = host(out[0].placed, out[0].nodes,
+                                 out[0].reason)
+        return out
+
+    sched._immediate_solve = spy
+    launches = {}
+    g.greedy_place.launches = 0
+    started, cold = cycle_once(sched, 100.0, label + " cold")
+    twin = cycle_outcome(sched, started)
+    record["armed"] = True
+    # warm cycles 300 s apart: some completions each, and a backlog left
+    # pending for explain_pending
+    windows, now, cap = profiled_cycles(sched, sim, submit, 100.0,
+                                        ["warm1", "warm2"], step=300.0)
+    # the cycle times outside the window (the profiler slows the host)
+    now += 300.0
+    sim.advance_to(now)
+    submit(TOPUP_JOBS, now)
+    _, unprofiled = cycle_once(sched, now, label + " warm3")
+    launches["obs_immediate"] = g.greedy_place.launches
+    check(launches["obs_immediate"] == 4,
+          f"{label}: {launches['obs_immediate']} launches for 4 cycles")
+    cpu_check(f"{label} cycle under the window", plain_check,
+              record["out"], *record["in"])
+    # (c) explain_pending against the warm cycle's pending reasons
+    ids = sorted(sched.pending)
+    check(len(ids) >= EXPLAIN_JOBS, f"explain: {len(ids)} pending jobs")
+    pick = [ids[i] for i in np.linspace(0, len(ids) - 1, EXPLAIN_JOBS,
+                                         dtype=int)]
+    gates = {}
+    t1 = time.perf_counter()
+    for jid in pick:
+        ex = sched.explain_pending(jid, now)
+        job = sched.pending[jid]
+        check(ex["gate"], f"explain {jid}: no gate")
+        check(ex["reason"] == job.pending_reason.value,
+              f"explain {jid}: {ex['reason']} (gate {ex['gate']}, "
+              f"{ex['detail']}) != pending reason "
+              f"{job.pending_reason.value}")
+        gates[ex["gate"]] = gates.get(ex["gate"], 0) + 1
+    explain_ms = (time.perf_counter() - t1) * 1e3 / len(pick)
+    drill = stall_drill(sched)
+    print(f"[obs:explain] {len(pick)} pending jobs: gates {gates}, "
+          f"{explain_ms:.2f} ms each; stall drill {json.dumps(drill)}",
+          flush=True)
+    rep["immediate"] = {"cold": cold, "window": windows, "capture": cap,
+                        "unprofiled_warm": unprofiled}
+    rep["explain"] = {"jobs": len(pick), "gates": gates,
+                      "ms_per_job": explain_ms, "stall_drill": drill}
+    del sched, sim, submit
+
+    # (b) the default cell's cold cycle, job trace on and off; the
+    # earlier cells' garbage (reference cycles through the spies) is
+    # collected first, so that no cycle pays for another's
+    cost = {}
+    for job_trace in (True, False):
+        label = f"obs-default trace={job_trace}"
+        rng = np.random.default_rng(2)
+        gc.collect()
+        sched, sim, submit = build_cell(
+            rng, False, SchedulerConfig(job_trace=job_trace))
+        submit(N_JOBS, 0.0)
+        gc.collect()
+        self0 = introspect.self_time_s()
+        rec0 = sched.jobtrace.self_time_s if job_trace else 0.0
+        g.greedy_place.launches = 0
+        started, last = cycle_once(sched, 100.0, label)
+        n = g.greedy_place.launches
+        check(n == 1, f"{label}: {n} launches")
+        launches[f"obs_default_trace_{job_trace}"] = n
+        cost[job_trace] = {
+            "prelude_ms": last["prelude_ms"], "commit_ms": last["commit_ms"],
+            "dispatch_ms": last["dispatch_ms"],
+            "total_ms": last["total_ms"],
+            "placed": len(started),
+            "introspect_self_ms": (introspect.self_time_s() - self0) * 1e3,
+            # the recorder's own time inside the cycle: its direct cost
+            "jobtrace_cycle_ms": ((sched.jobtrace.self_time_s - rec0) * 1e3
+                                  if job_trace else 0.0),
+            "jobtrace": (sched.jobtrace.stats() if job_trace else None)}
+        cost[job_trace]["introspect_share"] = (
+            cost[job_trace]["introspect_self_ms"] / last["total_ms"])
+        if job_trace:
+            outcome = cycle_outcome(sched, started)
+            # the split warm cycle under the window
+            g.greedy_place.launches = 0
+            split, _, split_cap = profiled_cycles(sched, sim, submit,
+                                                  100.0, ["split-warm"])
+            n = g.greedy_place.launches
+            check(n == 1, f"obs split warm: {n} launches")
+            launches["obs_split"] = n
+            rep["split"] = {"window": split, "capture": split_cap}
+        else:
+            same_outcome("job trace on vs off", outcome,
+                         cycle_outcome(sched, started))
+        del sched, sim, submit
+    on, off = cost[True], cost[False]
+    print(f"[obs:job-trace] default cold cycle, on vs off: prelude "
+          f"{on['prelude_ms']:.1f} vs {off['prelude_ms']:.1f} ms, commit "
+          f"{on['commit_ms']:.1f} vs {off['commit_ms']:.1f}, dispatch "
+          f"{on['dispatch_ms']:.1f} vs {off['dispatch_ms']:.1f}, total "
+          f"{on['total_ms']:.1f} vs {off['total_ms']:.1f}; the recorder's "
+          f"own time in the cycle {on['jobtrace_cycle_ms']:.1f} ms; recorder "
+          f"{json.dumps(on['jobtrace'])}; introspection self time "
+          f"{on['introspect_self_ms']:.3f} ms "
+          f"({on['introspect_share']:.2e} of the cycle)", flush=True)
+    rep["job_trace_cost"] = {"on": on, "off": off}
+    return rep, launches, twin
+
+
+def phase_native(twin):
+    """The JAX package's solver names on the disjoint cell's cold cycle:
+    ``solver="native"`` and ``"auto"`` (which takes the native solver
+    here) against the ``"cuda"`` twin of phase_obs, from the same seed:
+    started jobs, nodes, reasons and ledger equal."""
+    from cranesched_tpu_torch.ctld import SchedulerConfig
+    from cranesched_tpu_torch.models import gpu_solver as g
+    from cranesched_tpu_torch.utils import native
+
+    # built in phase 2 (no cycle pays the g++ build)
+    check(native.available(), "the native library did not build")
+    out = {}
+    for solver in ("native", "auto"):
+        label = f"native solver={solver}"
+        rng = np.random.default_rng(1)
+        gc.collect()
+        sched, sim, submit = build_cell(
+            rng, False, SchedulerConfig(backfill=False, solver=solver))
+        submit(N_JOBS, 0.0)
+        gc.collect()
+        g.greedy_place.launches = 0
+        started, last = cycle_once(sched, 100.0, label)
+        check(g.greedy_place.launches == 0,
+              f"{label}: the kernel launched {g.greedy_place.launches} "
+              "times")
+        check(last["solver"] == "native", f"{label}: {last['solver']}")
+        check(sched.cycle_trace.snapshot()[-1]["recompiles"] == 0,
+              f"{label}: the cycle paid a build")
+        same_outcome(f"{label} vs cuda", cycle_outcome(sched, started),
+                     twin)
+        out[solver] = {"solve_ms": last["solve_ms"],
+                       "total_ms": last["total_ms"], "placed": len(started)}
+        del sched, sim, submit
+    print(f"[native] native / auto / cuda equal on {len(twin[0])} starts; "
+          f"solve_ms {json.dumps(out)}", flush=True)
+    return out
+
+
+
 def main() -> int:
     try:
         return run()
@@ -2018,12 +2433,24 @@ def run() -> int:
     print(f"[device] {kind} | nvidia-smi: {card} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # 2. build
+    # 2. build: the kernels (one nvcc each) and, beside them, the native
+    # solver library of phase 11 (g++)
+    import threading
+
+    from cranesched_tpu_torch.utils import native
+
     t0 = time.perf_counter()
+    nat = {}
+    gxx = threading.Thread(target=lambda: nat.update(
+        ok=native.available(), seconds=time.perf_counter() - t0))
+    gxx.start()
     report = build.build_all()
+    gxx.join()
+    check(nat["ok"], "the native library did not build")
     print(f"[build] {time.perf_counter() - t0:.2f}s "
           + ", ".join(f"{k}: {v['seconds']:.2f}s" for k, v in
-                      report.items()), flush=True)
+                      report.items())
+          + f", crane_native (g++): {nat['seconds']:.2f}s", flush=True)
     for name, v in report.items():
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -2073,9 +2500,15 @@ def run() -> int:
                                            ref_commit_ms)
     cycles += rows
     print(json.dumps({"lifecycle": life}), flush=True)
+
+    # 11. the observability planes, and the JAX package's solver names
+    obs, obs_paths, twin = timed("obs", phase_obs)
+    paths.update(obs_paths)
+    native_rep = timed("native", phase_native, twin)
+    native_rep["cuda_solve_ms"] = obs["immediate"]["cold"]["solve_ms"]
     launches = sum(paths.values())
 
-    # 11. the CPU checks the phases left to the worker processes
+    # 12. the CPU checks the phases left to the worker processes
     t0 = time.perf_counter()
     results = {label: f.result() for label, f in _checks.items()}
     print(f"[cpu-checks] all {len(results)} passed in {CPU_WORKERS} worker "
@@ -2144,6 +2577,8 @@ def run() -> int:
             "launch": a["launch"],
         })
     print(json.dumps({"cycles": cycles}), flush=True)
+    print(json.dumps({"obs": obs}), flush=True)
+    print(json.dumps({"native": native_rep}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -86,6 +86,17 @@ class SimCluster:
         for node_id in node_ids:
             self.craneds[node_id].alloc_step(job.job_id)
         self._job_nodes[job.job_id] = list(node_ids)
+        trace = getattr(self.scheduler, "jobtrace", None)
+        if trace is not None:
+            # the simulated node plane is synchronous and shares the
+            # ctld clock: stamp the node-side edges inline, skew 0
+            start = (job.start_time if job.start_time is not None
+                     else self.now)
+            node = node_ids[0] if node_ids else -1
+            for edge in ("craned_received", "cgroup_ready",
+                         "step_start"):
+                trace.stamp(job.job_id, job.requeue_count, edge, start,
+                            node_id=node)
         if job.spec.alloc_only:
             return  # the allocation just sits; steps arrive separately
         runtime = (job.spec.sim_runtime if job.spec.sim_runtime is not None

@@ -12,14 +12,18 @@ A cycle runs:
      (``models/packing.py``; immediate fit, no backfill that cycle);
    - ``topo``: a gang cycle under an attached topology
      (``topo/place.py``; best-fit leaf block, no backfill that cycle);
-   - ``backfill=False``: the greedy placement by the CUDA kernel on the
-     device-resident cluster state (``models/gpu_solver.py``,
-     ``ctld/resident.py``);
+   - ``backfill=False``: the immediate fit, by the configured
+     ``solver``: the greedy placement by the CUDA kernel on the
+     device-resident cluster state (``"cuda"``, the default, and
+     ``"pallas"``; ``models/gpu_solver.py``, ``ctld/resident.py``), the
+     native C++ solver (``"native"``, and ``"auto"`` while it can take
+     the shape; ``utils/native.py``) or the plain ``solve_greedy`` on
+     the scheduler's device (``"device"``);
    - ``backfill=True`` (the default) with at most ``backfill_max_jobs``
      candidates: the time-axis solve over every candidate
      (``models/solver_time.py``), whose future starts hold reservations;
    - ``backfill=True`` with more candidates: that solve for the
-     ``backfill_max_jobs`` head, then the greedy kernel for the tail
+     ``backfill_max_jobs`` head, then the immediate fit for the tail
      against the head's min-over-horizon availability;
    under a topology the greedy kernel sees the node axis in block-major
    order (``Topology.perm``) and its picks are mapped back;
@@ -42,10 +46,15 @@ is not durable.  ``recover`` rebuilds the queues from a replay and
 ``rebuild_device_state`` drops every device-side cache, so the first
 cycle after a restart pays one full rebuild of the resident state.
 
+The observability planes run beside the cycle as in the JAX package:
+the cycle trace ring, the event log, the per-job timelines with their
+SLOs, the flight recorder, the ``torch.profiler`` capture window and
+``explain_pending`` (``obs/``, ``ctld/explain.py``).
+
 Semantics are the JAX package's, bit for bit.  What the port does not
-carry yet raises ``NotImplementedError`` naming its ROADMAP item: other
-solver backends.  HA, federation, and the events, job trace, flight
-recorder, SLO and explain planes are left out.
+carry yet raises ``NotImplementedError`` naming its ROADMAP item: the
+sharded solver (A10), and the server loop's knobs (A9).  HA and
+federation are left out.
 
 The cycle is an explicit ``schedule_cycle(now)`` call with virtual time;
 ``cycle_phases`` exposes it as a generator whose yielded closures (the
@@ -57,6 +66,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import queue
+import threading
 import time
 import traceback
 from typing import Callable
@@ -120,6 +131,7 @@ from cranesched_tpu_torch.models.solver import (
     JobBatch,
     Placements,
     make_cluster_state,
+    solve_greedy,
 )
 from cranesched_tpu_torch.models.solver_time import (
     TimedClusterState,
@@ -128,6 +140,12 @@ from cranesched_tpu_torch.models.solver_time import (
     make_timed_state,
     solve_backfill,
 )
+from cranesched_tpu_torch.obs import introspect
+from cranesched_tpu_torch.obs.events import EventLog
+from cranesched_tpu_torch.obs.flight import FlightRecorder
+from cranesched_tpu_torch.obs.jobtrace import JobTraceRecorder
+from cranesched_tpu_torch.obs.slo import SloEngine
+from cranesched_tpu_torch.obs.trace import CycleTraceRing, solve_span
 from cranesched_tpu_torch.ops.resources import DIM_CPU, DIM_MEM
 from cranesched_tpu_torch.topo.place import solve_greedy_topo
 
@@ -151,6 +169,10 @@ _GATE_REASON = {
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not in the port yet (ROADMAP.md {item})")
+
+
+#: ``SchedulerConfig.solver`` values the port runs
+SOLVERS = ("cuda", "pallas", "native", "auto", "device")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,12 +203,24 @@ class SchedulerConfig:
     backfill_max_jobs: int = 1024
     # QoS preemption (needs ``accounts``): "off" | "requeue" | "cancel"
     preempt_mode: str = "off"
-    # the immediate-fit backend: the CUDA greedy-placement kernel
+    # bounded ring of structured per-cycle traces (obs/trace.py)
+    cycle_trace_ring: int = 64
+    # the immediate-fit backend (the split backfill's tail too): "cuda"
+    # the CUDA greedy-placement kernel, and "pallas" (the JAX package's
+    # name for its kernel) the same; "native" the C++ solver
+    # (utils/native.py; raises when it cannot take the shape or build);
+    # "auto" the C++ solver where it can take the shape, else the
+    # kernel; "device" the plain solve_greedy on the scheduler's device.
+    # All are bit-identical on placements.  "sharded" is ROADMAP A10.
     solver: str = "cuda"
+    # the server's post-commit dispatch fan-out width (ROADMAP A9)
+    dispatch_workers: int | None = None
     # incremental cycle state: the PendingTable candidate pass, delta
     # meta snapshots and the no-op-cycle fingerprint.  False rebuilds
     # from scratch every cycle (the parity oracle).
     incremental: bool = True
+    # the longest the server's event-driven loop sleeps (ROADMAP A9)
+    cycle_idle_sleep: float = 30.0
     # keep the solve's ClusterState on the device across cycles and
     # patch only dirty rows (ctld/resident.py); effective only with
     # ``incremental`` (the dirty feed is the delta-snapshot machinery)
@@ -194,15 +228,32 @@ class SchedulerConfig:
     # stream planner knobs (plan_streams)
     max_streams: int = 4
     block_jobs: int = 256
+    # per-job lifecycle tracing (obs/jobtrace.py): timelines stamped at
+    # submit / candidate / commit / durable-dispatch / terminal edges
+    # and by the node plane.  False removes every stamp from the cycle.
+    job_trace: bool = True
+    # bounded timeline store size (live + closed, each)
+    job_trace_capacity: int = 4096
+    # SLO targets over trace edges (obs/slo.py): tuple of
+    # (name, from_edge, to_edge, percentile, target_seconds, windows)
+    slo: tuple = ()
 
     def __post_init__(self):
         if self.preempt_mode not in ("off", "requeue", "cancel"):
             raise ValueError(
                 f"preempt_mode must be off|requeue|cancel, "
                 f"got {self.preempt_mode!r}")
-        if self.solver != "cuda":
-            raise _not_ported(f"solver {self.solver!r} (the port's solver "
-                              "is 'cuda')", "A8-A11")
+        if self.solver == "sharded":
+            raise _not_ported("solver 'sharded'", "A10")
+        if self.solver not in SOLVERS:
+            raise ValueError(f"solver must be one of {'|'.join(SOLVERS)}, "
+                             f"got {self.solver!r}")
+        if self.dispatch_workers is not None:
+            raise _not_ported("dispatch_workers (the server's dispatch "
+                              "pool)", "A9")
+        if self.cycle_idle_sleep != 30.0:
+            raise _not_ported("cycle_idle_sleep (the server's cycle "
+                              "loop)", "A9")
         if self.priority_type not in ("multifactor", "basic"):
             raise ValueError(f"priority_type must be multifactor|basic, "
                              f"got {self.priority_type!r}")
@@ -294,7 +345,8 @@ class _MaskTable:
         self.rows: list[np.ndarray] = []
         self.rows_np: np.ndarray | None = None  # padded [Cpad, N] mirror
         self.table: torch.Tensor | None = None  # device twin of rows_np
-        self.disjoint = True      # no node is in 2+ rows
+        self.disjoint = True      # no node is in 2+ rows (see node_class)
+        self._node_class: np.ndarray | None = None
 
     def reset(self, epoch: int, num_nodes: int) -> None:
         self.epoch = epoch
@@ -308,6 +360,7 @@ class _MaskTable:
         self.rows_np = None
         self.table = None
         self.disjoint = True
+        self._node_class = None
 
     def class_for(self, key: tuple, row_fn) -> int:
         """Class id for ``key``; ``row_fn()`` builds the [N] bool row
@@ -323,6 +376,7 @@ class _MaskTable:
                 self._bytes_to_class[b] = cid
                 self.rows_np = None
                 self.table = None
+                self._node_class = None
             self.key_to_class[key] = cid
         return cid
 
@@ -339,6 +393,22 @@ class _MaskTable:
                 (padded.sum(axis=0, dtype=np.int64) <= 1).all())
             self.table = torch.from_numpy(padded).to(device)
         return self.rows_np, self.table
+
+    def node_class(self) -> np.ndarray | None:
+        """Per-node owner class id iff the rows are pairwise disjoint —
+        then ``rows[c] == (node_class == c)`` exactly, which feeds the
+        native solver's partition-id mode (no dense [J, N] mask).
+        Unowned nodes get a label no job carries.  None when rows
+        overlap.  Call after ``tables``."""
+        if not self.disjoint:
+            return None
+        if self._node_class is None:
+            rows_np = self.rows_np
+            owner = np.full(rows_np.shape[1], rows_np.shape[0], np.int32)
+            cls, node = np.nonzero(rows_np)
+            owner[node] = cls
+            self._node_class = owner
+        return self._node_class
 
 
 class JobScheduler:
@@ -458,10 +528,103 @@ class JobScheduler:
             "jobs_submitted_total": 0, "jobs_finished_total": 0,
             "last_cycle": {}, "last_cycle_walltime": 0.0,
         }
-        # the in-flight cycle's accumulator of phase times and labels
+        # node lifecycle events: ``node_event_hook`` (callable(record))
+        # runs on one worker thread, in order; ``node_events`` keeps the
+        # last 200 records
+        self.node_event_hook = None
+        self.node_events: list[dict] = []
+        self._node_event_queue = None  # lazily-started ordered worker
+        # structured per-cycle traces (obs/trace.py); _cur_trace is the
+        # in-flight cycle's accumulator, pushed to the ring at its end;
+        # consecutive skipped cycles coalesce into one ring row
+        self.cycle_trace = CycleTraceRing(config.cycle_trace_ring)
         self._cur_trace: dict = {}
+        self._skip_trace: dict | None = None
+        # per-job lifecycle tracing + SLO plane (obs/jobtrace.py,
+        # obs/slo.py): None when job_trace is off, and every stamp site
+        # guards on it
+        self.slo_engine = SloEngine.from_config(config.slo)
+        self.jobtrace = (JobTraceRecorder(
+            capacity=config.job_trace_capacity, slo=self.slo_engine)
+            if config.job_trace else None)
+        # structured cluster event log (obs/events.py)
+        self.events = EventLog()
+        if self.slo_engine is not None:
+            self.slo_engine.event_sink = self._slo_event
+        # introspection plane (obs/introspect.py): per-cycle build
+        # attribution is delta-based off the process-wide counter; the
+        # profiler window is ticked at cycle boundaries
+        self._cycle_compile_base = introspect.total_compiles()
+        self.profiler_window = introspect.ProfilerWindow(
+            event_sink=lambda type, sev, detail="": self.events.emit(
+                type, sev, detail=detail))
+        # stall forensics (obs/flight.py): the phase ring the cycle
+        # stamps, and the stall sentry a server loop arms per cycle
+        self.flight = FlightRecorder(
+            event_sink=lambda type, sev, detail="": self.events.emit(
+                type, sev, detail=detail))
+        # the in-flight cycle's ``now``: the dispatch-ring drain stamps
+        # committed_durable/dispatched on the clock the cycle used
+        self._cycle_now = 0.0
         if archive is not None:
             self.attach_archive(archive)
+
+    # cycles before a fresh build counts as a steady-state violation
+    # (the first cycles legitimately build each kernel they launch)
+    WARMUP_CYCLES = 3
+
+    def emit_node_event(self, event: str, node_name: str,
+                        detail: str = "", now: float = 0.0) -> None:
+        """Record + fan out one node lifecycle event.  The hook runs on
+        one worker thread draining a queue: operator code never blocks a
+        cycle, and back-to-back transitions (drain then undrain) reach
+        the hook in order, never concurrently."""
+        record = {"event": event, "node": node_name, "detail": detail,
+                  "time": now}
+        self.node_events.append(record)
+        if len(self.node_events) > 200:
+            del self.node_events[: len(self.node_events) - 200]
+        # mirror into the typed event ring (flap detection included)
+        self.events.emit_node_transition(event, node_name, detail=detail,
+                                         now=now)
+        if self.node_event_hook is None:
+            return
+        if self._node_event_queue is None:
+            self._node_event_queue = queue.Queue()
+
+            def worker():
+                while True:
+                    rec = self._node_event_queue.get()
+                    hook = self.node_event_hook
+                    if hook is None:
+                        continue
+                    try:
+                        hook(rec)
+                    except Exception:
+                        _LOG.error("node event hook raised:\n%s",
+                                   traceback.format_exc())
+
+            threading.Thread(target=worker, daemon=True,
+                             name="node-event-hook").start()
+        self._node_event_queue.put(record)
+
+    def _slo_event(self, name: str, window: float, burn: float,
+                   breaching: bool) -> None:
+        """SloEngine breach-edge sink -> typed event ring."""
+        if breaching:
+            self.events.emit(
+                "slo_breach", "error",
+                detail="%s window=%ds burn=%.2f" % (name, window, burn))
+        else:
+            self.events.emit(
+                "slo_clear",
+                detail="%s window=%ds recovered" % (name, window))
+
+    def explain_pending(self, job_id: int, now: float) -> dict:
+        """First-failing-gate decomposition for one job (ctld/explain.py).
+        The caller holds the scheduler's lock."""
+        from cranesched_tpu_torch.ctld.explain import explain_pending
+        return explain_pending(self, job_id, now)
 
     def attach_archive(self, archive) -> None:
         """Wire the durable history store.  Seeds the job-id counter
@@ -582,16 +745,34 @@ class JobScheduler:
         self._noop_edge = edge
 
     def _skip_cycle(self, t0, now: float, reason: str) -> list[int]:
-        """The short-circuited cycle: count it; only the snapshot /
-        sort / solve / commit machinery is skipped."""
+        """The short-circuited cycle: count it, and coalesce consecutive
+        skips into one trace-ring row (an idle night must not flush real
+        cycles out of the ring); only the snapshot / sort / solve /
+        commit machinery is skipped."""
         self.stats["cycles"] += 1
         self.stats["skipped_cycles"] += 1
+        self.flight.stamp("skip", detail=reason)
         ms = round((time.perf_counter() - t0) * 1e3, 3)
         self.stats["last_cycle_walltime"] = time.time()
         self.stats["last_cycle"] = {
             "solver": "skip", "skip_reason": reason, "prelude_ms": ms,
             "total_ms": ms, "pending": 0, "started": 0,
             "running": len(self.running)}
+        st = self._skip_trace
+        if st is not None:
+            st["skips"] = st.get("skips", 0) + 1
+            st["now"] = now
+            st["total_ms"] = ms
+        else:
+            trace = {
+                "now": now, "queue_depth": len(self.pending),
+                "solver": "skip", "skip_reason": reason, "skips": 1,
+                "prelude_ms": ms, "solve_ms": 0.0, "commit_ms": 0.0,
+                "dispatch_ms": 0.0, "total_ms": ms, "lock_held_ms": ms,
+                "candidates": 0, "placed": 0, "preempted": 0,
+                "backfilled": 0, "running": len(self.running)}
+            self.cycle_trace.push(trace)
+            self._skip_trace = trace
         return []
 
     def can_idle(self) -> bool:
@@ -722,6 +903,8 @@ class JobScheduler:
         self.pending[job_id] = job
         if self.wal is not None:
             self.wal.job_submitted(job)
+        if self.jobtrace is not None:
+            self.jobtrace.stamp(job_id, 0, "submit", now)
         return job_id
 
     def job_info(self, job_id: int) -> Job | None:
@@ -889,11 +1072,16 @@ class JobScheduler:
         self._release_job_resources(job)
         del self.running[job_id]
         self._cancel_kill_sent.pop(job_id, None)
+        if self.jobtrace is not None:
+            self.jobtrace.stamp(job_id, job.requeue_count, "requeue",
+                                now)
         job.reset_for_requeue()
         if job.requeue_count > self.config.max_requeue_count:
             job.held = True
             job.pending_reason = PendingReason.HELD
         self.pending[job_id] = job
+        self.events.emit("requeue", job_id=job_id, detail="operator",
+                         time=now)
         if self.wal is not None:
             self.wal.job_requeued(job)
         return ""
@@ -1033,6 +1221,37 @@ class JobScheduler:
             StatusChange(job_id, status, exit_code, now,
                          incarnation=queue_incarnation))
 
+    def record_remote_spans(self, job_id: int, incarnation: int,
+                            spans) -> int:
+        """Merge node-side spans (craned_received / cgroup_ready /
+        step_start, as dicts or objects with ``edge``, ``time``, ``seq``,
+        ``node_id``, ``skew``) into the job's timeline.  Each keeps its
+        original seq; stamp-once drops duplicates from retried reports.
+        Returns the number of spans newly recorded."""
+        if self.jobtrace is None:
+            return 0
+        n = 0
+        for s in spans:
+            edge = s["edge"] if isinstance(s, dict) else s.edge
+            if isinstance(s, dict):
+                t, seq = s["t"], s.get("seq")
+                node_id = s.get("node_id", -1)
+                skew = s.get("skew", 0.0)
+            else:
+                t, seq, node_id, skew = s.time, s.seq, s.node_id, s.skew
+            if self.jobtrace.stamp(job_id, incarnation, edge, float(t),
+                                   node_id=int(node_id),
+                                   skew=float(skew), seq=int(seq)):
+                n += 1
+        return n
+
+    def trace_seq(self, job_id: int, incarnation: int) -> int:
+        """Next span seq for (job_id, incarnation): the base a node plane
+        numbers its local spans after."""
+        if self.jobtrace is None:
+            return 0
+        return self.jobtrace.next_seq(job_id, incarnation)
+
     def step_report_async(self, job_id: int, step_id: int,
                           status: StepStatus, exit_code: int, now: float,
                           incarnation: int | None = None) -> None:
@@ -1074,6 +1293,9 @@ class JobScheduler:
             job.exit_code = ch.exit_code
             job.status = ch.status
             if self._should_requeue(job, ch):
+                if self.jobtrace is not None:
+                    self.jobtrace.stamp(job.job_id, job.requeue_count,
+                                        "requeue", ch.time)
                 job.reset_for_requeue()
                 if job.requeue_count > self.config.max_requeue_count:
                     job.held = True
@@ -1190,6 +1412,11 @@ class JobScheduler:
                 step.status = StepStatus.CANCELLED
                 step.exit_code = 130
             step.end_time = job.end_time
+        if self.jobtrace is not None:
+            t = (job.end_time if job.end_time is not None
+                 else (job.start_time or job.submit_time))
+            self.jobtrace.stamp(job.job_id, job.requeue_count, "end", t,
+                                epoch=self.fencing_epoch)
         self._finalize(job)
         self._trigger_dep_event(job)
         if job.array_parent_id is not None:
@@ -1532,6 +1759,10 @@ class JobScheduler:
     def on_craned_down(self, node_id: int, now: float) -> list[int]:
         """A node died: end its jobs; a system failure requeues up to
         ``max_requeue_count``, then holds."""
+        node = self.meta.nodes.get(node_id)
+        self.emit_node_event("node_down",
+                             node.name if node else str(node_id),
+                             now=now)
         victim_ids = self.meta.craned_down(node_id)
         for job_id in victim_ids:
             job = self.running.get(job_id)
@@ -1560,6 +1791,8 @@ class JobScheduler:
                 job.held = True
                 job.pending_reason = PendingReason.HELD
             self.pending[job_id] = job
+            self.events.emit("requeue", job_id=job_id,
+                             detail="node down", time=now)
             if self.wal is not None:
                 self.wal.job_requeued(job)
         return victim_ids
@@ -1699,6 +1932,11 @@ class JobScheduler:
         wal = self.wal
         self._wal_cycle_base = ((wal.fsync_total, wal.groups_total)
                                 if wal is not None else (0, 0))
+        # introspection: per-cycle build attribution and the armed
+        # profiler window's tick (cheap no-ops when idle)
+        self._cycle_compile_base = introspect.total_compiles()
+        self.profiler_window.tick()
+        self.flight.stamp("cycle_begin")
         self._wal_begin()
         try:
             started = yield from self._cycle_body(now)
@@ -1709,6 +1947,7 @@ class JobScheduler:
             # the generator is closed early
             self._wal_flush()
             self._drain_dispatch_ring()
+            self.flight.stamp("cycle_end")
 
     def _wal_begin(self) -> None:
         if self.wal is not None:
@@ -1735,6 +1974,8 @@ class JobScheduler:
         reached the disk would leave a ghost allocation after recovery
         requeues the job."""
         ring = self._dispatch_ring
+        if not ring:
+            return 0
         items = list(ring)
         ring.clear()
         if self.wal is not None:
@@ -1745,6 +1986,21 @@ class JobScheduler:
                     self.stats.get("dispatch_dropped", 0)
                     + len(items) - len(kept))
             items = kept
+            if not items:
+                return 0
+        trace = self.jobtrace
+        if trace is not None:
+            # past the durability filter: the WAL group holding each
+            # job's start record is on disk.  "dispatched" is stamped as
+            # the push is issued (a simulated node plane stamps its own
+            # spans during the call below, which must come after these)
+            t = self._cycle_now
+            for job, _nodes, inc, epoch, _seq in items:
+                trace.stamp(job.job_id, inc, "committed_durable", t,
+                            epoch=epoch)
+                trace.stamp(job.job_id, inc, "dispatched", t,
+                            epoch=epoch)
+        self.flight.stamp("dispatch", detail=str(len(items)))
         for job, node_ids, *_ in items:
             self.dispatch(job, node_ids)
         return len(items)
@@ -1760,14 +2016,20 @@ class JobScheduler:
 
     def _note_dispatch(self, result) -> None:
         _n, ms = result
+        # the ring row was pushed before the drain: update it in place
+        self._cur_trace["dispatch_ms"] = round(ms, 3)
         lc = self.stats.get("last_cycle")
         if isinstance(lc, dict):
             lc["dispatch_ms"] = round(ms, 3)
 
     def _cycle_body(self, now: float):
         t0 = time.perf_counter()
-        self._cur_trace = {"now": now, "solve_ms": 0.0, "num_streams": 1,
-                           "preempted": 0}
+        self._cur_trace = {
+            "now": now, "queue_depth": len(self.pending),
+            "solver": "", "solve_ms": 0.0,
+            "preempted": 0, "backfilled": 0, "num_streams": 1,
+        }
+        self._cycle_now = now
         self.process_status_changes()
         self._check_craned_timeouts(now)
         self._check_alloc_timeouts(now)
@@ -1776,6 +2038,7 @@ class JobScheduler:
         self.meta.purge_expired_reservations(now)
         self._materialize_array_children(now)
         t_prelude = time.perf_counter()
+        self.flight.stamp("prelude")
 
         # no-op short-circuit: if no epoch moved since the last armed
         # zero-placement solve and no time edge passed, this cycle would
@@ -1790,12 +2053,27 @@ class JobScheduler:
 
         self.stats["cycles"] += 1
         candidates = self._pending_candidates(now)
+        if self.jobtrace is not None and candidates:
+            # first-sight "eligible" stamp per incarnation; the Job
+            # attribute guard keeps repeat cycles at one attribute probe
+            # per candidate
+            fresh = []
+            for job in candidates:
+                if getattr(job, "_trace_eligible", -1) != \
+                        job.requeue_count:
+                    job._trace_eligible = job.requeue_count
+                    fresh.append((job.job_id, job.requeue_count))
+            if fresh:
+                self.jobtrace.stamp_many("eligible", fresh, now)
         if not candidates:
+            # an empty cycle does not enter the trace ring (an idle
+            # cluster would flush every interesting trace out of it)
             self.stats["last_cycle_walltime"] = time.time()
             self.stats["last_cycle"] = {
                 "prelude_ms": round((t_prelude - t0) * 1e3, 3),
                 "pending": 0, "started": 0,
                 "running": len(self.running)}
+            self._skip_trace = None
             self._arm_noop(now)
             return []
         limit = self.config.schedule_batch_size
@@ -1834,12 +2112,13 @@ class JobScheduler:
                                        device=self.device)
             pbatch = self._packed_batch(jobs_batch.dense(), ordered)
             placements = yield from self._unlocked(
+                "packed",
                 lambda: solve_packed(state, pbatch, max_nodes=max_nodes)[0])
             started = self._commit(ordered, placements, now,
                                    tasks=placements.tasks)
             started += self._try_preemption(ordered, now)
             self._wal_flush()
-            self._record_cycle_stats(t0, candidates, started,
+            self._record_cycle_stats(t0, t_prelude, candidates, started,
                                      time.perf_counter(), "packed")
             if self._dispatch_ring:
                 self._note_dispatch((yield self._dispatch_phase()))
@@ -1858,13 +2137,13 @@ class JobScheduler:
             dense = jobs_batch.dense()
             levels = topo.levels(self.device)
             placements, _, info = yield from self._unlocked(
-                lambda: solve_greedy_topo(state, dense, levels,
+                "topo", lambda: solve_greedy_topo(state, dense, levels,
                                           max_nodes=max_nodes))
             self._note_topo(topo, ordered, info)
             started = self._commit(ordered, placements, now)
             started += self._try_preemption(ordered, now)
             self._wal_flush()
-            self._record_cycle_stats(t0, candidates, started,
+            self._record_cycle_stats(t0, t_prelude, candidates, started,
                                      time.perf_counter(), "topo")
             if self._dispatch_ring:
                 self._note_dispatch((yield self._dispatch_phase()))
@@ -1877,7 +2156,7 @@ class JobScheduler:
                     max_nodes, now)
                 started += self._try_preemption(ordered, now)
                 self._wal_flush()
-                self._record_cycle_stats(t0, candidates, started,
+                self._record_cycle_stats(t0, t_prelude, candidates, started,
                                          time.perf_counter(),
                                          "backfill-split")
                 if self._dispatch_ring:
@@ -1886,15 +2165,15 @@ class JobScheduler:
             state = self._timed_state(now, avail, total, alive, cost0)
             tbatch = self._timed_batch(jobs_batch.dense())
             placements = yield from self._unlocked(
-                lambda: solve_backfill(state, tbatch,
-                                       edges=self._grid_edges,
-                                       max_nodes=max_nodes)[0])
+                "backfill", lambda: solve_backfill(
+                    state, tbatch, edges=self._grid_edges,
+                    max_nodes=max_nodes)[0])
             started = self._commit(ordered, placements, now,
                                    placements.start_bucket)
             solver_name = "backfill"
         else:
             placements, solver_name = yield from self._unlocked(
-                lambda: self._solve_gpu(
+                "immediate", lambda: self._immediate_solve(
                     avail, total, alive, cost0, jobs_batch, max_nodes,
                     resident_ok=True))
             started = self._commit(ordered, placements, now)
@@ -1903,7 +2182,7 @@ class JobScheduler:
         # next cycle's resident patch
         self._wal_flush()
         self._resident.stage()
-        self._record_cycle_stats(t0, candidates, started,
+        self._record_cycle_stats(t0, t_prelude, candidates, started,
                                  time.perf_counter(), solver_name)
         if self._dispatch_ring:
             self._note_dispatch((yield self._dispatch_phase()))
@@ -1927,9 +2206,9 @@ class JobScheduler:
                                            & (rows >= bf_max))
         state = self._timed_state(now, avail, total, alive, cost0)
         placements, tstate = yield from self._unlocked(
-            lambda: solve_backfill(state, head_batch,
-                                   edges=self._grid_edges,
-                                   max_nodes=max_nodes), part="head")
+            "backfill", lambda: solve_backfill(
+                state, head_batch, edges=self._grid_edges,
+                max_nodes=max_nodes), part="head")
         started = self._commit(head, placements, now,
                                placements.start_bucket)
 
@@ -1940,11 +2219,12 @@ class JobScheduler:
             # the min stays on the device and is never adopted as, or
             # patched into, the resident state
             min_avail = tstate.time_avail.amin(dim=1)
-            return self._solve_gpu(min_avail, total, alive, tstate.cost,
-                                   tail_batch, max_nodes,
-                                   resident_ok=False)
+            return self._immediate_solve(min_avail, total, alive,
+                                         tstate.cost, tail_batch,
+                                         max_nodes, resident_ok=False)
 
-        out, _ = yield from self._unlocked(tail_solve, part="tail")
+        out, _ = yield from self._unlocked("immediate", tail_solve,
+                                           part="tail")
         started += self._commit(tail, Placements(
             placed=out.placed[bf_max:], nodes=out.nodes[bf_max:],
             reason=out.reason[bf_max:]), now)
@@ -1968,25 +2248,37 @@ class JobScheduler:
                              time_limit=batch.time_limit,
                              part_mask=batch.part_mask, valid=batch.valid)
 
-    def _solve_gpu(self, avail, total, alive, cost0, jobs_batch,
-                   max_nodes, resident_ok=False):
-        """The immediate-fit solve: greedy placement by the CUDA kernel
-        (models/gpu_solver.py), returning ``(placements, label)``.
-        Class-disjoint batches run the S-stream decomposition, labeled
-        ``cuda-stream`` with ``num_streams`` recorded; overlapping
-        classes run the serial kernel, labeled ``cuda``.  The cluster
-        state is updated in place on the device; with ``resident_ok`` it
-        is the cross-cycle resident state (dirty-row patch) instead of a
-        fresh upload of ``avail`` (an array or a device tensor).
+    def _immediate_solve(self, avail, total, alive, cost0, jobs_batch,
+                         max_nodes, resident_ok=False):
+        """The immediate-fit solve through the configured ``solver``,
+        returning ``(placements, label)``.  Every backend is
+        bit-identical on placements:
 
-        Under a topology the kernel sees the node axis in block-major
+        - ``"cuda"`` and ``"pallas"``: the greedy placement by the CUDA
+          kernel (models/gpu_solver.py).  Class-disjoint batches run the
+          S-stream decomposition, labeled ``cuda-stream`` with
+          ``num_streams`` recorded; overlapping classes run the serial
+          kernel, labeled ``cuda``;
+        - ``"native"``: the C++ solver (utils/native.py), labeled
+          ``native``; raises when the library cannot be built or cannot
+          take the shape;
+        - ``"auto"``: the C++ solver where it can, else the kernel;
+        - ``"device"``: the plain ``solve_greedy`` on the scheduler's
+          device, labeled ``device``.
+
+        The kernel and the plain solve update the cluster state in place
+        on the device; with ``resident_ok`` it is the cross-cycle
+        resident state (dirty-row patch) instead of a fresh upload of
+        ``avail`` (an array or a device tensor).  The C++ solver works on
+        host copies and leaves the resident state alone.
+
+        Under a topology the solve sees the node axis in block-major
         order (``Topology.perm``): its ascending-cost, lowest-id walk
         then clusters picks inside blocks.  The snapshot, the cost seed
-        and the class masks with their host copy (from which the streams
-        and the owned slots are planned) are permuted; the picks are
-        mapped back to real node ids; the resident state, whose rows are
-        real node ids, is dropped for the solve."""
-        cfg = self.config
+        and the class masks with their host copies (from which the
+        streams and the owned slots are planned) are permuted; the picks
+        are mapped back to real node ids; the resident state, whose rows
+        are real node ids, is dropped for the solve."""
         topo = self._active_topology()
         perm = None
         if topo is not None:
@@ -1998,41 +2290,27 @@ class JobScheduler:
 
             avail, total, alive, cost0 = (permuted(x) for x in (
                 avail, total, alive, cost0))
+            node_class = jobs_batch.node_class_np
             jobs_batch = dataclasses.replace(
                 jobs_batch, class_masks=jobs_batch.class_masks[:, perm],
-                class_rows_np=jobs_batch.class_rows_np[:, topo.perm])
+                class_rows_np=jobs_batch.class_rows_np[:, topo.perm],
+                node_class_np=(node_class[topo.perm]
+                               if node_class is not None else None))
             self._resident.invalidate()
             resident_ok = False
-        use_resident = resident_ok and self._resident.enabled
-        if use_resident:
-            state, _mode = self._resident.acquire(
-                avail, total, alive, cost0,
-                key=("cuda", int(avail.shape[0]), int(avail.shape[1]),
-                     self._mask_table.generation))
-        else:
-            state = make_cluster_state(avail, total, alive, cost0,
-                                       device=self.device)
-        b = jobs_batch
-        args = (b.req, b.node_num, b.time_limit, b.valid, b.job_class,
-                b.class_masks)
-        plan = None
-        if self._mask_table.disjoint:
-            # the table proved its rows disjoint once per epoch: the
-            # planner skips its [C, N] reduction
-            plan = plan_streams(b.job_class_np, b.class_rows_np,
-                                max_streams=cfg.max_streams,
-                                block_jobs=cfg.block_jobs,
-                                known_disjoint=True)
-        if plan is None:
-            placements, new_state = solve_greedy_gpu(
-                state, *args, max_nodes=max_nodes,
-                class_rows=b.class_rows_np)
-        else:
-            placements, new_state = solve_greedy_gpu_auto(
-                state, *args, max_nodes=max_nodes, plan=plan,
-                class_rows=b.class_rows_np)
-        if use_resident:
-            self._resident.adopt(new_state)
+        placements = None
+        solver = self.config.solver
+        if solver in ("auto", "native"):
+            placements = self._solve_native(avail, total, alive, cost0,
+                                            jobs_batch, max_nodes)
+            if placements is not None:
+                label = "native"
+            elif solver == "native":
+                raise RuntimeError("native solver unavailable")
+        if placements is None:
+            placements, label = self._solve_on_device(
+                avail, total, alive, cost0, jobs_batch, max_nodes,
+                resident_ok, plain=solver == "device")
         if perm is not None:
             nodes = placements.nodes
             real = torch.where(
@@ -2040,33 +2318,112 @@ class JobScheduler:
                 -1).to(torch.int32)
             placements = Placements(placed=placements.placed, nodes=real,
                                     reason=placements.reason)
+        return placements, label
+
+    def _solve_on_device(self, avail, total, alive, cost0, jobs_batch,
+                         max_nodes, resident_ok, plain):
+        """The greedy kernel, or with ``plain`` the plain ``solve_greedy``,
+        on the scheduler's device (see ``_immediate_solve``)."""
+        cfg = self.config
+        use_resident = resident_ok and self._resident.enabled
+        if use_resident:
+            state, _mode = self._resident.acquire(
+                avail, total, alive, cost0,
+                key=("device" if plain else "cuda", int(avail.shape[0]),
+                     int(avail.shape[1]), self._mask_table.generation))
+        else:
+            state = make_cluster_state(avail, total, alive, cost0,
+                                       device=self.device)
+        b = jobs_batch
+        plan = None
+        if plain:
+            placements, new_state = solve_greedy(state, b.dense(),
+                                                 max_nodes=max_nodes)
+        else:
+            args = (b.req, b.node_num, b.time_limit, b.valid, b.job_class,
+                    b.class_masks)
+            if self._mask_table.disjoint:
+                # the table proved its rows disjoint once per epoch: the
+                # planner skips its [C, N] reduction
+                plan = plan_streams(b.job_class_np, b.class_rows_np,
+                                    max_streams=cfg.max_streams,
+                                    block_jobs=cfg.block_jobs,
+                                    known_disjoint=True)
+            if plan is None:
+                placements, new_state = solve_greedy_gpu(
+                    state, *args, max_nodes=max_nodes,
+                    class_rows=b.class_rows_np)
+            else:
+                placements, new_state = solve_greedy_gpu_auto(
+                    state, *args, max_nodes=max_nodes, plan=plan,
+                    class_rows=b.class_rows_np)
+        if use_resident:
+            self._resident.adopt(new_state)
+        if plain:
+            return placements, "device"
         num_streams = plan[1] if plan is not None else 1
         self._cur_trace["num_streams"] = num_streams
         return placements, ("cuda-stream" if num_streams > 1 else "cuda")
 
-    def _unlocked(self, fn, part: str | None = None):
+    def _solve_native(self, avail, total, alive, cost0, jobs_batch,
+                      max_nodes):
+        """The C++ treap solver (utils/native.py; bit-identical to
+        solve_greedy) on host copies of the inputs: Placements on the
+        scheduler's device, or None when the library cannot be built or
+        cannot take the shape.  Disjoint class rows go in as class ids
+        (no [J, N] mask anywhere); overlapping ones as the host gather of
+        the class rows."""
+        from cranesched_tpu_torch.utils import native
+
+        def hostify(x):
+            return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+        b = jobs_batch
+        common = (hostify(avail), hostify(total),
+                  np.asarray(hostify(alive)).astype(np.uint8),
+                  hostify(cost0), hostify(b.req), hostify(b.node_num),
+                  hostify(b.time_limit),
+                  hostify(b.valid).astype(np.uint8))
+        node_class = b.node_class_np
+        if node_class is not None:
+            out = native.solve_greedy_native(
+                *common, max_nodes=max_nodes, job_part=b.job_class_np,
+                node_part=node_class)
+        else:
+            out = native.solve_greedy_native(
+                *common, max_nodes=max_nodes, mask=b.dense_mask_np())
+        if out is None:
+            return None
+        dev = self.device
+        return Placements(placed=torch.from_numpy(out[0]).to(dev),
+                          nodes=torch.from_numpy(out[1]).to(dev),
+                          reason=torch.from_numpy(out[2]).to(dev))
+
+    def _unlocked(self, label: str, fn, part: str | None = None):
         """Yield a solve closure to run with the caller's lock released:
         the cycle's open WAL group is flushed first and a new one opened
         once the solve is back."""
         self._wal_flush()
-        out = yield self._traced_solve(fn, part)
+        out = yield self._traced_solve(label, fn, part)
         self._wal_begin()
         return out
 
-    def _traced_solve(self, fn, part: str | None = None):
+    def _traced_solve(self, label: str, fn, part: str | None = None):
         """Wrap a yielded solve closure: time it, settling the device
         work before the clock stops (otherwise the commit's read-back
-        would absorb the kernel time).  A split cycle's solves also
-        record their own time as ``solve_<part>_ms``."""
+        would absorb the kernel time), inside a ``crane:solve:<label>``
+        profiler span.  A split cycle's solves also record their own
+        time as ``solve_<part>_ms``."""
         trace = self._cur_trace
 
         def run():
             t0 = time.perf_counter()
             # the cycle's prelude ends when the solve starts
             trace.setdefault("_prelude_end", t0)
-            out = fn()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            with solve_span(f"crane:solve:{label}"):
+                out = fn()
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
             ms = (time.perf_counter() - t0) * 1e3
             trace["solve_ms"] += ms
             if part is not None:
@@ -2075,13 +2432,17 @@ class JobScheduler:
 
         return run
 
-    def _record_cycle_stats(self, t0, candidates, started, t_end,
-                            solver: str) -> None:
+    def _record_cycle_stats(self, t0, t_prelude, candidates, started,
+                            t_end, solver: str) -> None:
         self.stats["jobs_started_total"] += len(started)
+        self.flight.stamp("commit", detail=str(len(started)))
         trace = self._cur_trace
         total_ms = (t_end - t0) * 1e3
+        drain_ms = (t_prelude - t0) * 1e3
         prelude_ms = (trace.pop("_prelude_end") - t0) * 1e3
         solve_ms = trace["solve_ms"]
+        # everything after the prelude but the solve: the commit
+        commit_ms = max(total_ms - prelude_ms - solve_ms, 0.0)
         res = self._resident
         mode = res.pop_cycle_mode()
         self.stats["last_cycle"] = {
@@ -2091,9 +2452,7 @@ class JobScheduler:
             "priority_ms": round(trace["priority_ms"], 3),
             "batch_ms": round(trace["batch_ms"], 3),
             "solve_ms": round(solve_ms, 3),
-            # everything after the prelude but the solve: the commit
-            "commit_ms": round(max(total_ms - prelude_ms - solve_ms, 0.0),
-                               3),
+            "commit_ms": round(commit_ms, 3),
             # updated in place once the ring drains (_note_dispatch)
             "dispatch_ms": 0.0,
             "total_ms": round(total_ms, 3),
@@ -2106,11 +2465,13 @@ class JobScheduler:
             "patch_overlap": bool(res.last_overlap) if mode else False,
         }
         wal = self.wal
+        base_fsync, base_groups = self._wal_cycle_base
+        wal_fsyncs = wal.fsync_total - base_fsync if wal is not None else 0
+        wal_groups = (wal.groups_total - base_groups
+                      if wal is not None else 0)
         if wal is not None:
-            base_fsync, base_groups = self._wal_cycle_base
-            self.stats["last_cycle"].update(
-                wal_fsyncs=wal.fsync_total - base_fsync,
-                wal_groups=wal.groups_total - base_groups)
+            self.stats["last_cycle"].update(wal_fsyncs=wal_fsyncs,
+                                            wal_groups=wal_groups)
         # backfill cycles: jobs holding a future start, and a split
         # cycle's solve time by part; preemption and topology counts
         for key in ("backfilled", "solve_head_ms", "solve_tail_ms",
@@ -2122,9 +2483,46 @@ class JobScheduler:
                 self.stats["last_cycle"][key] = (
                     round(value, 3) if isinstance(value, float) else value)
         self.stats["last_cycle_walltime"] = time.time()
-        # a zero-placement solve with nothing in flight arms the no-op
-        # fingerprint
-        if not started and not self._dispatch_ring:
+        trace.update(
+            solver=solver,
+            drain_ms=round(drain_ms, 3),
+            prelude_ms=round(prelude_ms, 3),
+            solve_ms=round(solve_ms, 3),
+            commit_ms=round(commit_ms, 3),
+            # updated in place once the ring drains (_note_dispatch)
+            dispatch_ms=0.0,
+            total_ms=round(total_ms, 3),
+            lock_held_ms=round(prelude_ms + commit_ms, 3),
+            wal_fsyncs=wal_fsyncs,
+            wal_groups=wal_groups,
+            candidates=len(candidates),
+            placed=len(started),
+            dirty_jobs=self._ptable.last_dirty,
+            dirty_nodes=self.meta.last_snapshot_dirty,
+        )
+        if mode is not None:
+            trace.update(resident=mode, h2d_rows=res.last_h2d_rows,
+                         h2d_bytes=res.last_h2d_bytes,
+                         patch_overlap=bool(res.last_overlap))
+        # introspection plane: the builds this cycle paid (delta off the
+        # process-wide counter) and the card's memory.  A warm cycle
+        # that pays a build is surfaced as an event, not just a counter.
+        recompiles = introspect.total_compiles() - self._cycle_compile_base
+        mem = introspect.sample_device_memory()
+        trace.update(recompiles=recompiles, device_bytes=mem["bytes"],
+                     device_peak_bytes=mem["peak_bytes"],
+                     device_buffers=mem["buffers"])
+        if recompiles > 0 and self.stats["cycles"] >= self.WARMUP_CYCLES:
+            self.events.emit(
+                "recompile_steady", "warning",
+                detail="cycle %d paid %d recompile(s)" % (
+                    self.stats["cycles"], recompiles))
+        self.cycle_trace.push(trace)
+        self._skip_trace = None
+        # a zero-placement solve with nothing preempted or in flight arms
+        # the no-op fingerprint
+        if (not started and trace.get("preempted", 0) == 0
+                and not self._dispatch_ring):
             self._arm_noop(trace["now"])
 
     # ------------------------------------------------------------------
@@ -2402,7 +2800,8 @@ class JobScheduler:
             valid=torch.ones(kN, dtype=torch.bool, device=dev),
             job_class=torch.from_numpy(job_class).to(dev),
             class_masks=table, job_class_np=job_class,
-            class_rows_np=rows_np)
+            class_rows_np=rows_np,
+            node_class_np=self._mask_table.node_class())
         return batch, max_nodes
 
     # ------------------------------------------------------------------
@@ -2539,9 +2938,13 @@ class JobScheduler:
             self._resident.mark_diverged(np.unique(bad[bad >= 0]))
         self._ledger_add_batch(started_jobs, now)
         wal = self.wal
+        trace = self.jobtrace
         for job in started_jobs:
             if wal is not None:
                 wal.job_started(job)   # buffered into the cycle's group
+            if trace is not None:
+                trace.stamp(job.job_id, job.requeue_count, "placed",
+                            now, epoch=self.fencing_epoch)
             self._trigger_dep_event(job)   # AFTER edges fire on start
             self._queue_dispatch(job, job.node_ids)
         return started
@@ -2857,6 +3260,9 @@ class JobScheduler:
         self._ledger_add(job, now)
         if self.wal is not None:
             self.wal.job_started(job)
+        if self.jobtrace is not None:
+            self.jobtrace.stamp(job.job_id, job.requeue_count, "placed",
+                                now, epoch=self.fencing_epoch)
         self._trigger_dep_event(job)
         self._queue_dispatch(job, chosen)
         return True
@@ -2887,6 +3293,9 @@ class JobScheduler:
             self._cur_trace.get("preempted", 0) + 1)
         self.stats["jobs_preempted_total"] = (
             self.stats.get("jobs_preempted_total", 0) + 1)
+        self.events.emit("preemption", "warning", job_id=victim_id,
+                         detail="mode=%s" % self.config.preempt_mode,
+                         time=now)
         kill = (self.dispatch_free_alloc if victim.spec.alloc_only
                 else self.dispatch_terminate)
         kill(victim_id, now, incarnation=victim.requeue_count)
@@ -2902,6 +3311,9 @@ class JobScheduler:
             self._finalize_terminal(victim)
             return
         if self.config.preempt_mode == "requeue":
+            if self.jobtrace is not None:
+                self.jobtrace.stamp(victim_id, victim.requeue_count,
+                                    "requeue", now)
             victim.reset_for_requeue()
             victim.pending_reason = PendingReason.PREEMPTED
             if victim.requeue_count > self.config.max_requeue_count:
@@ -2985,6 +3397,12 @@ class JobScheduler:
             else:
                 job.status = JobStatus.PENDING
                 self.pending[job_id] = job
+        if self.jobtrace is not None:
+            # seed timelines for every replayed job: synthetic spans
+            # back-date the edges the WAL proves were passed (stamp-once
+            # makes this a no-op for spans already held)
+            for job_id, (_event, job) in sorted(replayed.items()):
+                self.jobtrace.seed_recovered(job, now)
         # re-derive waiting edges against each dependee's current state
         # (events between the last record and the crash would otherwise
         # be lost), then rebuild the dependents map

@@ -8,6 +8,9 @@ loaded with ``ctypes``.  The build happens at first use, into
 ``.gitignore``), keyed by a hash of the source, every header and the
 flags, so a fresh checkout builds everything it runs and a changed
 source or header never loads a stale library.  A missing ``nvcc`` raises: there is no fallback.
+Every lookup is counted in ``obs.flight.kernel_cache_stats`` (a library
+found built is a hit, one built now a miss), and every build in
+``obs.introspect.total_compiles`` (the cycle trace's ``recompiles``).
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits
 for them; ``load(name)`` builds one kernel if needed and returns its
@@ -23,6 +26,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from cranesched_tpu_torch.obs import flight
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -60,10 +65,11 @@ def library_path(name: str) -> Path:
 
 
 def _start(name: str):
-    """Start nvcc for one kernel; returns (process, tmp, target) or None
-    when the library for this source is already built."""
+    """Start nvcc for one kernel; returns (process, tmp, target, start)
+    or None when the library for this source is already built."""
     target = library_path(name)
     if target.exists():
+        flight.note_kernel_cache(name, hit=True)
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
@@ -71,16 +77,18 @@ def _start(name: str):
            str(CSRC_DIR / SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, target
+    return proc, tmp, target, time.perf_counter()
 
 
 def _finish(name: str, started) -> str:
-    proc, tmp, target = started
+    proc, tmp, target, t0 = started
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} "
                            f"(rc={proc.returncode}):\n{out}")
     os.replace(tmp, target)   # atomic: a reader never sees half a library
+    flight.note_kernel_cache(name, hit=False,
+                             seconds=time.perf_counter() - t0)
     return out
 
 

@@ -147,7 +147,10 @@ class FactoredJobBatch:
     req int32[J, R], node_num int32[J], time_limit int32[J], valid
     bool[J], job_class int32[J] and class_masks bool[C, N] live on the
     device; ``job_class_np`` and ``class_rows_np`` are their host mirrors,
-    read by the stream planner without a device round trip."""
+    read by the stream planner and the native solver without a device
+    round trip, and ``node_class_np`` int32[N] gives each node's owner
+    class when the rows are pairwise disjoint (None otherwise), the
+    native solver's partition-id mode."""
 
     req: torch.Tensor
     node_num: torch.Tensor
@@ -157,10 +160,16 @@ class FactoredJobBatch:
     class_masks: torch.Tensor
     job_class_np: np.ndarray
     class_rows_np: np.ndarray
+    node_class_np: np.ndarray | None = None
 
     @property
     def num_jobs(self) -> int:
         return self.req.shape[0]
+
+    def dense_mask_np(self) -> np.ndarray:
+        """Host-side dense mask bool[J, N] (a numpy gather of the class
+        rows) for host solvers that cannot use the factored form."""
+        return np.asarray(self.class_rows_np)[self.job_class_np]
 
     def with_valid(self, valid: torch.Tensor) -> "FactoredJobBatch":
         """The same batch with another validity mask (tables shared)."""

@@ -1,9 +1,43 @@
-"""Observability of the port.  Only the dependency-free metrics registry
-is here so far (``metrics.py``, a copy of ``cranesched_tpu/obs/
-metrics.py``): the WAL counts its fsyncs and group sizes in it.  The
-cycle trace ring, events, job trace, flight recorder, SLOs and explain
-are ROADMAP.md A8's next slice."""
+"""Observability of the port (copies of ``cranesched_tpu/obs/``, with
+torch counterparts where the JAX package reaches JAX):
 
+- ``metrics.py``    process-wide registry of counters / gauges /
+                    histograms with Prometheus text exposition and a
+                    stdlib HTTP endpoint.
+- ``trace.py``      bounded ring of structured per-cycle traces plus the
+                    ``torch.profiler.record_function`` span around solve
+                    closures.
+- ``events.py``     bounded ring of typed, severity-tagged cluster
+                    events (node flaps, requeues, preemptions, SLO
+                    breaches, steady-state rebuilds).
+- ``jobtrace.py``   event-sourced per-job timelines (one span per
+                    lifecycle edge) and the derived latency histograms.
+- ``slo.py``        sliding-window percentile targets over trace edges
+                    with multi-window burn rates and a breach counter.
+- ``flight.py``     stall forensics: the flight recorder (phase ring +
+                    stall sentry with all-thread stacks), the fsync'd
+                    heartbeat protocol, and the build cache's counters.
+- ``introspect.py`` run-time build counts, the card's memory gauges,
+                    and the N-cycle ``torch.profiler`` capture window.
+
+The federation-wide merge (``obs/fedobs.py``) comes with federation
+(ROADMAP.md A14).
+"""
+
+from cranesched_tpu_torch.obs.flight import (  # noqa: F401
+    FlightRecorder,
+    Heartbeat,
+    PROBE_PHASES,
+    dump_all_stacks,
+    kernel_cache_stats,
+    read_heartbeat,
+)
+from cranesched_tpu_torch.obs.jobtrace import (  # noqa: F401
+    FED_EDGES,
+    SPAN_EDGES,
+    JobTraceRecorder,
+    render_waterfall,
+)
 from cranesched_tpu_torch.obs.metrics import (  # noqa: F401
     Counter,
     Gauge,
@@ -11,4 +45,12 @@ from cranesched_tpu_torch.obs.metrics import (  # noqa: F401
     MetricsRegistry,
     REGISTRY,
     serve_metrics,
+)
+from cranesched_tpu_torch.obs.slo import (  # noqa: F401
+    SloEngine,
+    SloSpec,
+)
+from cranesched_tpu_torch.obs.trace import (  # noqa: F401
+    CycleTraceRing,
+    solve_span,
 )

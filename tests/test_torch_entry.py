@@ -3,9 +3,10 @@ refuse loudly what the port does not carry yet.
 
 Here there is no CUDA device, so every entry point given no ``device``
 must raise; with ``device="cpu"`` it runs.  Out-of-slice configuration
-(the solver backends still outside the port) raises
+(the sharded solver, the server loop's knobs) raises
 ``NotImplementedError`` naming its ROADMAP item instead of being
-accepted or rejected as invalid; what the port carries (packed and
+accepted or rejected as invalid; what the port carries (every other
+field of the JAX package's ``SchedulerConfig``, packed and
 exclusive jobs, licenses, accounts, topologies, preemption modes,
 reservations named by a job, arrays, dependencies, begin times,
 allocation-only jobs and submit hooks) is accepted.
@@ -62,13 +63,43 @@ def test_entry_points_raise_without_cuda():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(solver="pallas"), "A8"),
-    (dict(backfill=False, solver="sharded"), "A8"),
-    (dict(backfill=False, solver="device"), "A8"),
+    (dict(backfill=False, solver="sharded"), "A10"),
+    (dict(dispatch_workers=8), "A9"),
+    (dict(cycle_idle_sleep=5.0), "A9"),
 ])
 def test_unsupported_config_raises(kw, item):
+    """The sharded solver and the server loop's knobs are refused by
+    their ROADMAP item; an unknown solver name is invalid."""
     with pytest.raises(NotImplementedError, match=item):
         SchedulerConfig(**kw)
+    with pytest.raises(ValueError, match="solver"):
+        SchedulerConfig(solver="tpu")
+
+
+def test_every_jax_config_field_is_accepted_with_its_default():
+    """Every field of the JAX package's SchedulerConfig exists in the
+    port's with the same default, and a JAX config of the planes and
+    solver names (with the defaults of the server's knobs) builds."""
+    import dataclasses
+
+    from cranesched_tpu.ctld.scheduler import SchedulerConfig as JaxConfig
+
+    port = {f.name: f for f in dataclasses.fields(SchedulerConfig)}
+    for f in dataclasses.fields(JaxConfig):
+        assert f.name in port, f.name
+        if f.name == "solver":
+            continue   # the port's default stays on its kernel ("cuda")
+        if f.default is not dataclasses.MISSING:
+            assert port[f.name].default == f.default, f.name
+    cfg = SchedulerConfig(cycle_trace_ring=8, job_trace=False,
+                          job_trace_capacity=16,
+                          slo=(("s", "submit", "dispatched", 99.0, 5.0,
+                                (60.0,)),),
+                          dispatch_workers=None, cycle_idle_sleep=30.0)
+    sched = JobScheduler(_meta(), cfg, device="cpu")
+    assert sched.jobtrace is None and sched.slo_engine is not None
+    for solver in ("auto", "native", "device", "pallas", "cuda"):
+        assert SchedulerConfig(solver=solver).solver == solver
 
 
 @pytest.mark.parametrize("mode", ["off", "requeue", "cancel"])
@@ -101,6 +132,9 @@ def test_config_keeps_the_reference_defaults():
     assert cfg.incremental and cfg.resident_state
     assert cfg.solver == "cuda" and cfg.max_nodes_per_job == 8
     assert (cfg.max_streams, cfg.block_jobs) == (4, 256)
+    assert cfg.cycle_trace_ring == 64 and cfg.job_trace
+    assert cfg.job_trace_capacity == 4096 and cfg.slo == ()
+    assert cfg.dispatch_workers is None and cfg.cycle_idle_sleep == 30.0
 
 
 _RES = ResourceSpec(cpu=1.0, mem_bytes=1 << 30)

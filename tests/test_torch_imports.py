@@ -4,10 +4,11 @@ A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
 ``jaxlib``, ``flax`` and the top-level ``cranesched_tpu`` (not
 ``cranesched_tpu_torch``), imports every module of the port (the
 topology, hostlist, accounting, license, packing, preemption, WAL,
-archive, accounts-store and metrics modules among them), runs a 16-node
-scheduling cycle on the CPU with a topology, a license, a packed job, a
-dependency, an array and a WAL, and recovers a second scheduler from
-that WAL.  ``chip_smoke.py`` is checked by an
+archive, accounts-store, metrics and observability modules among them),
+runs a 16-node scheduling cycle on the CPU with a topology, a license, a
+packed job, a dependency, an array, a WAL and the job trace, recovers a
+second scheduler from that WAL, and runs a cycle with the native solver
+under a profiler capture.  ``chip_smoke.py`` is checked by an
 AST scan of its imports.
 """
 
@@ -102,6 +103,24 @@ _CHILD = textwrap.dedent("""
     again.recover(WriteAheadLog.replay(wal_path), now=end)
     again.rebuild_device_state()
     assert len(again.history) == len(sched.history) == 45
+    # the planes: job timelines, the trace ring, explain, the native
+    # solver under "auto" and a profiler capture
+    assert sched.jobtrace.ledger(sorted(sched.history))["lost"] == []
+    assert len(sched.cycle_trace) > 0
+    auto = JobScheduler(meta, SchedulerConfig(backfill=False,
+                                              solver="auto"),
+                        device="cpu")
+    auto.profiler_window.base_dir = tmp
+    jid = auto.submit(JobSpec(res=ResourceSpec(cpu=1.0), partition="p0",
+                              held=True), now=end)
+    assert auto.submit(JobSpec(res=ResourceSpec(cpu=1.0), partition="p0"),
+                       now=end) > 0
+    assert auto.profiler_window.request(1)[0]
+    assert auto.schedule_cycle(now=end)
+    assert auto.stats["last_cycle"]["solver"] == "native"
+    auto.schedule_cycle(now=end + 1)
+    assert auto.explain_pending(jid, end)["gate"] == "held"
+    assert auto.profiler_window.status()["captures_done"] == 1
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("OK", len(started), end)
@@ -117,7 +136,10 @@ def test_port_imports_without_jax_and_runs_a_cycle():
     for mod in ("topo", "topo.model", "topo.place", "utils.hostlist",
                 "ctld.accounting", "ctld.licenses", "models.packing",
                 "models.preempt", "models.preempt_time", "ctld.wal",
-                "ctld.archive", "ctld.acct_store", "obs", "obs.metrics"):
+                "ctld.archive", "ctld.acct_store", "obs", "obs.metrics",
+                "obs.trace", "obs.events", "obs.slo", "obs.jobtrace",
+                "obs.flight", "obs.introspect", "ctld.explain",
+                "utils.native"):
         assert f"cranesched_tpu_torch.{mod}" in mods, mod
     code = _CHILD.format(blocked=BLOCKED, mods=mods)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
