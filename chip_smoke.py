@@ -134,12 +134,38 @@ Phases (any failure exits non-zero and prints no result):
    disjoint cold cycle with ``solver="native"`` and ``"auto"`` (the C++
    solver, built with g++ into ``build/native/``) equal to the
    ``"cuda"`` cold cycle of (a) from the same seed;
-12. the CPU checks: every plain version and CPU replay above runs in
+12. the controller daemon over gRPC (``rpc/server.py``,
+   ``ctld_main.py``) on phase 6's cluster and jobs.  (a) ``serve`` in
+   tick mode on the card with ``SimCluster``: 100,000 specs through
+   ``CtldClient`` in ``SubmitBatchJobs`` calls of 1,000; p50/p99 of a
+   page of ``QueryJobsInfo`` and of ``QueryClusterInfo`` at rest at
+   100,000 pending; a cold ``Tick``, then 10,000 more specs and a warm
+   ``Tick`` 900 s later with a second client querying all through it;
+   ``QueryJobsInfo`` pages by its cursor, ``QueryJobsStream``,
+   ``QueryClusterInfo``, ``QueryJobSummary`` (with ``explain_json``),
+   ``QueryEvents`` and ``QueryStats``; 1,000 pending and 100 running
+   jobs cancelled over the wire.  All of it is held against a twin
+   ``JobScheduler`` on the card fed the same specs at the same ``now``s
+   in process, and the twin's own handlers: started sets, nodes,
+   pending reasons, ledgers and every job record equal.  greedy_place
+   launches once in each tick (the split cycle's tail), and the cold
+   tick's tail equals the plain version.  Each tick's RPC wall time is
+   printed beside the cycle's ``total_ms`` and its lock-held share.
+   (b) ``python3 -m cranesched_tpu_torch.ctld_main -c <yaml> --sim``
+   with no ``--device`` (the card), a WAL and an archive in a temporary
+   directory: the banner, 100,000 specs over the wire (made to run and
+   wait without end), a second daemon on the same WAL refused (the
+   lease is held), at least two cycles with starts and one that places
+   nothing, SIGTERM and exit 0, a restart that shows every acknowledged
+   job as the last query before the stop did; boot-to-banner seconds,
+   the first cycle's time, and each cycle's ``total_ms``/``solve_ms``;
+13. the CPU checks: every plain version and CPU replay above runs in
    one of ``CPU_WORKERS`` worker processes beside the card's phases;
    the script waits for all of them and fails on any failure;
-13. one JSON line each for the cycles, the lifecycle, the obs phase and
-   the native solver, one describing every kernel, then the card line,
-   then the result line ``{"ok": true, "device": {...}}``.
+14. one JSON line each for the cycles, the lifecycle, the obs phase, the
+   native solver and the controller, one describing every kernel, then
+   the card line, then the result line ``{"ok": true, "device":
+   {...}}``.
 
 It imports nothing of the JAX package.  The kernel build goes to
 ``build/kernels/`` (see ``cranesched_tpu_torch/kernels/build.py``).
@@ -2408,6 +2434,616 @@ def phase_native(twin):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12. the controller daemon over gRPC
+# ---------------------------------------------------------------------------
+
+WIRE_CHUNK = 1_000          # specs per SubmitBatchJobs
+DAEMON_TOPUP = 10_000       # the warm tick's top-up
+CANCEL_PENDING, CANCEL_RUNNING = 1_000, 100
+QUERY_REPS = 30             # queries per kind at rest
+PAGES_WALKED = 3            # QueryJobsInfo pages walked from the start
+QUERY_PAUSE_S = 0.05        # the warm tick's client: pause between pairs
+# the daemon's client polls as ``watch cqueue`` does, every 2 s.  Its
+# queries' Python shares the daemon's GIL with the cycle thread, whose
+# backfill head hands the GIL over at each of its ~100 launches a job:
+# at QUERY_PAUSE_S the head took 5-32x its time in process on an H100,
+# which ``phase_daemon(poll_s=QUERY_PAUSE_S)`` measures (PERF.md)
+POLL_S = 2.0
+DAEMON_WAIT_S = 300.0       # the longest any one wait of leg (b) may take
+
+
+def draw_specs(rng, k):
+    """``k`` wire job specs drawn as ``build_cell``'s ``submit`` draws
+    them on four disjoint partitions (the same draws in the same order,
+    so after ``build_cell`` with phase 6's seed they are phase 6's
+    jobs)."""
+    from cranesched_tpu_torch.rpc import crane_pb2 as pb
+
+    out = []
+    for _ in range(k):
+        part = f"p{rng.integers(0, 4)}"
+        tl = int(rng.integers(60, 86400))
+        cpu = float(rng.integers(1, 17))
+        mem = int(rng.integers(1, 33)) << 30
+        out.append(pb.JobSpec(
+            res=pb.ResourceSpec(cpu=cpu, mem_bytes=mem),
+            node_num=int(rng.integers(1, 3)), time_limit=tl, partition=part,
+            sim_runtime=float(rng.integers(30, 1800))))
+    return out
+
+
+def wire_submit(client, specs):
+    """Submit over the wire in chunks of ``WIRE_CHUNK``; returns (job
+    ids, seconds)."""
+    t0 = time.perf_counter()
+    ids = []
+    for lo in range(0, len(specs), WIRE_CHUNK):
+        reply = client.submit_many(specs[lo:lo + WIRE_CHUNK])
+        ids += [r.job_id for r in reply.replies]
+    dt = time.perf_counter() - t0
+    check(all(ids) and len(set(ids)) == len(ids),
+          f"wire submit: {sum(1 for i in ids if not i)} rejected")
+    return ids, dt
+
+
+def percentiles(xs):
+    a = np.sort(np.asarray(xs) * 1e3)
+    return {"n": len(a), "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99)), "max_ms": float(a[-1])}
+
+
+def start_querier(addr, lat, stop, pause):
+    """A started thread that sends a 1,000-job ``QueryJobsInfo`` page and
+    a ``QueryClusterInfo`` to ``addr``, ``pause`` seconds apart, until
+    ``stop`` is set, appending each call's seconds to ``lat``."""
+    import threading
+
+    from cranesched_tpu_torch.rpc import CtldClient
+
+    def loop():
+        qc = CtldClient(addr, timeout=600.0)
+        try:
+            while not stop.is_set():
+                t1 = time.perf_counter()
+                qc.query_jobs(limit=1000)
+                lat["jobs"].append(time.perf_counter() - t1)
+                t1 = time.perf_counter()
+                qc.query_cluster()
+                lat["cluster"].append(time.perf_counter() - t1)
+                stop.wait(pause)
+        finally:
+            qc.close()
+
+    thread = threading.Thread(target=loop)
+    thread.start()
+    return thread
+
+
+def job_records(reply_jobs):
+    return [j.SerializeToString(deterministic=True) for j in reply_jobs]
+
+
+def same_service_state(label, sched, twin, client=None, twin_srv=None):
+    """The server's scheduler against its in-process twin: nodes of every
+    running job, the reason of every pending one, the ledger, and with
+    ``client`` every job record the wire streams against the twin's
+    handler's reply; returns the number of records compared."""
+    from cranesched_tpu_torch.rpc import crane_pb2 as pb
+
+    check(sorted(sched.running) == sorted(twin.running),
+          f"{label}: running sets differ")
+    check(all(sched.running[j].node_ids == twin.running[j].node_ids
+              for j in twin.running), f"{label}: nodes differ")
+    check(sorted(sched.pending) == sorted(twin.pending),
+          f"{label}: pending sets differ")
+    check(all(sched.pending[j].pending_reason
+              == twin.pending[j].pending_reason for j in twin.pending),
+          f"{label}: pending reasons differ")
+    ids = sorted(sched.meta.nodes)
+    check(np.array_equal(np.stack([sched.meta.nodes[i].avail for i in ids]),
+                         np.stack([twin.meta.nodes[i].avail for i in ids])),
+          f"{label}: ledgers differ")
+    check_ledger(sched, label, resident=False)
+    check_ledger(twin, label + " twin", resident=False)
+    if client is None:
+        return 0
+    # the stream over the wire against the twin's handler, every job
+    req = pb.QueryJobsRequest(include_history=True)
+    wire = [r for reply in client._stub.call_stream(
+        "QueryJobsStream", req, pb.QueryJobsReply) for r in reply.jobs]
+    mine = [r for reply in twin_srv.QueryJobsStream(req, None)
+            for r in reply.jobs]
+    check(len(wire) == len(mine) and job_records(wire) == job_records(mine),
+          f"{label}: the streamed job records differ from the twin's")
+    return len(wire)
+
+
+def phase_service():
+    """Leg (a): ``serve`` in tick mode on the card against an in-process
+    twin fed the same specs at the same ``now``s."""
+    import threading
+
+    from cranesched_tpu_torch.ctld import SchedulerConfig
+    from cranesched_tpu_torch.models import gpu_solver as g
+    from cranesched_tpu_torch.rpc import CtldClient, crane_pb2 as pb, serve
+    from cranesched_tpu_torch.rpc.convert import spec_from_pb
+    from cranesched_tpu_torch.rpc.server import CtldServer
+
+    label = "service"
+    gc.collect()
+    rng = np.random.default_rng(2)
+    t0 = time.perf_counter()
+    sched, sim, _ = build_cell(rng, False, SchedulerConfig())
+    specs = draw_specs(rng, N_JOBS)
+    topup = draw_specs(rng, DAEMON_TOPUP)
+    twin, tsim, _ = build_cell(np.random.default_rng(2), False,
+                               SchedulerConfig())
+    twin_srv = CtldServer(twin, sim=tsim, tick_mode=True)  # not started
+    server, port = serve(sched, sim=sim, tick_mode=True)
+    addr = f"127.0.0.1:{port}"
+    client = CtldClient(addr, timeout=600.0)
+    out = {"setup_s": time.perf_counter() - t0}
+    try:
+        # 100,000 submits over the wire; the twin takes the same specs
+        ids, dt = wire_submit(client, specs)
+        out["submit"] = {"jobs": len(ids), "seconds": dt,
+                         "jobs_per_s": len(ids) / dt,
+                         "chunk": WIRE_CHUNK}
+        twin_ids = [twin.submit(spec_from_pb(s), now=tsim.now)
+                    for s in specs]
+        check(ids == twin_ids, f"{label}: job ids differ from the twin's")
+        print(f"[{label}] {len(ids)} submits over the wire in {dt:.2f}s "
+              f"({len(ids) / dt:.0f} jobs/s, {WIRE_CHUNK} a call); "
+              f"{time.perf_counter() - t0:.1f}s into the leg (setup "
+              f"{out['setup_s']:.1f}s)", flush=True)
+
+        # the query plane at 100,000 pending, at rest
+        rest = {"jobs": [], "cluster": []}
+        for _ in range(QUERY_REPS):
+            t1 = time.perf_counter()
+            page = client.query_jobs(limit=1000)
+            rest["jobs"].append(time.perf_counter() - t1)
+            t1 = time.perf_counter()
+            nodes = client.query_cluster().nodes
+            rest["cluster"].append(time.perf_counter() - t1)
+        check(len(page.jobs) == 1000 and page.truncated,
+              f"{label}: a page of QueryJobsInfo")
+        check(len(nodes) == N_NODES, f"{label}: QueryClusterInfo")
+        out["query_at_rest"] = {k: percentiles(v) for k, v in rest.items()}
+
+        # record the cold tick's tail solve for the plain check
+        record = {}
+        solve = sched._immediate_solve
+
+        def spy(avail, total, alive, cost, batch, max_nodes,
+                resident_ok=False):
+            # the inputs before the solve (it updates the state in place)
+            first = "tail_in" not in record
+            if first:
+                record["tail_in"] = (
+                    avail.cpu().clone(), total.copy(), alive.copy(),
+                    cost.cpu().clone(), host(batch.req, batch.node_num,
+                                             batch.time_limit, batch.valid),
+                    batch.job_class_np.copy(), batch.class_rows_np.copy(),
+                    max_nodes)
+            res = solve(avail, total, alive, cost, batch, max_nodes,
+                        resident_ok=resident_ok)
+            if first:
+                record["tail_out"] = host(res[0].placed, res[0].nodes,
+                                          res[0].reason)
+            return res
+
+        sched._immediate_solve = spy
+        ticks = []
+        launches = 0
+        lat = {"jobs": [], "cluster": []}
+        for k, now in enumerate((100.0, 1000.0)):
+            if k:
+                # 900 s of completions come with the tick; the top-up
+                # goes in first, at the server's clock
+                more, _ = wire_submit(client, topup)
+                check(more == [twin.submit(spec_from_pb(s), now=tsim.now)
+                               for s in topup],
+                      f"{label}: top-up ids differ")
+            stop = threading.Event()
+            querier = None
+            if k:
+                querier = start_querier(addr, lat, stop, QUERY_PAUSE_S)
+            # the main path's launch count: zeroed just before the tick,
+            # read just after (the twin's own cycle is not counted)
+            g.greedy_place.launches = 0
+            t1 = time.perf_counter()
+            reply = client.tick(now)
+            wall = time.perf_counter() - t1
+            n = g.greedy_place.launches
+            stop.set()
+            if querier is not None:
+                querier.join(timeout=DAEMON_WAIT_S)
+                check(not querier.is_alive(), f"{label}: querier hung")
+            launches += n
+            trace = sched.cycle_trace.snapshot()[-1]
+            check(n == 1, f"{label} tick {k}: greedy_place launched {n} "
+                          "times (want once, the split cycle's tail)")
+            check(trace["solver"] == "backfill-split",
+                  f"{label} tick {k}: solver {trace['solver']}")
+            tsim.advance_to(now)
+            started = twin.schedule_cycle(now=now)
+            check(list(reply.started) == started,
+                  f"{label} tick {k}: started set differs from the twin's")
+            check(len(started) > 0, f"{label} tick {k}: placed nothing")
+            # the decisions by sets, nodes, reasons and ledger; every job
+            # record is compared after the cancels
+            same_service_state(f"{label} tick {k}", sched, twin)
+            row = {"tick": k, "now": now, "placed": len(started),
+                   "launches": n, "rpc_wall_ms": wall * 1e3,
+                   "total_ms": trace["total_ms"],
+                   "dispatch_ms": trace["dispatch_ms"],
+                   "solve_ms": trace["solve_ms"],
+                   "solve_head_ms": trace["solve_head_ms"],
+                   "lock_held_ms": trace["lock_held_ms"],
+                   "lock_held_share": trace["lock_held_ms"]
+                   / trace["total_ms"],
+                   # the RPC, and in the warm tick sim.advance_to's
+                   # completions, beyond the cycle and its dispatch
+                   "rpc_overhead_ms": wall * 1e3 - trace["total_ms"]
+                   - trace["dispatch_ms"],
+                   "pending_after": len(sched.pending)}
+            ticks.append(row)
+            print(f"[{label}] tick {k} at now={now}: placed {len(started)}"
+                  f", rpc {wall * 1e3:.1f}ms vs cycle total "
+                  f"{trace['total_ms']:.1f}ms + dispatch "
+                  f"{trace['dispatch_ms']:.1f}ms (solve "
+                  f"{trace['solve_ms']:.1f}"
+                  f"ms, lock held {trace['lock_held_ms']:.1f}ms), launches "
+                  f"{n}; == twin (started, nodes, reasons, ledger); "
+                  f"{time.perf_counter() - t0:.1f}s into the leg",
+                  flush=True)
+            if not k:
+                sched._immediate_solve = solve
+                cpu_check(f"{label} cold tick tail", plain_check,
+                          record["tail_out"], *record["tail_in"])
+        out["ticks"] = ticks
+        out["query_during_warm_tick"] = {k: percentiles(v)
+                                         for k, v in lat.items()}
+
+        # the query surface against the twin's handlers
+        # QueryJobsInfo paged by its cursor: the first pages, then the
+        # last two (truncated, then not), each reply against the twin's
+        # (the stream below compares every record)
+        live = sorted(set(twin.pending) | set(twin.running))
+        cursors = [0]
+        for k in range(PAGES_WALKED):
+            page = client.query_jobs(limit=1000, after_job_id=cursors[-1])
+            cursors.append(page.jobs[-1].job_id)
+        cursors = cursors[:-1] + [live[-1500], live[-500]]
+        truncated = []
+        for cursor in cursors:
+            req = pb.QueryJobsRequest(limit=1000, after_job_id=cursor)
+            reply = client._call("QueryJobsInfo", req, pb.QueryJobsReply)
+            check(reply.SerializeToString(deterministic=True)
+                  == twin_srv.QueryJobsInfo(req, None)
+                  .SerializeToString(deterministic=True),
+                  f"{label}: QueryJobsInfo after job {cursor} differs "
+                  "from the twin's")
+            truncated.append(reply.truncated)
+        check(truncated[-2:] == [True, False],
+              f"{label}: the last pages' truncated flags {truncated[-2:]}")
+        jid = live[-1]
+        check(client.query_cluster().SerializeToString(deterministic=True)
+              == twin_srv.QueryClusterInfo(pb.QueryClusterRequest(), None)
+              .SerializeToString(deterministic=True),
+              f"{label}: QueryClusterInfo differs from the twin's")
+        summary = client.query_job_summary()
+        check(summary.SerializeToString(deterministic=True)
+              == twin_srv.QueryJobSummary(pb.QueryJobSummaryRequest(),
+                                          None)
+              .SerializeToString(deterministic=True),
+              f"{label}: QueryJobSummary differs from the twin's")
+        explain = json.loads(client.query_job_summary(job_id=jid)
+                             .explain_json)
+        check(explain["job_id"] == jid, f"{label}: explain_json")
+        ev = [(e.seq, e.type, e.severity, e.node, e.job_id, e.detail)
+              for e in client.query_events().events]
+        ev_twin = [(e["seq"], e["type"], e["severity"], e["node"],
+                    e["job_id"], e["detail"]) for e in twin.events.since()]
+        check(ev == ev_twin, f"{label}: QueryEvents differs from the twin")
+        stats = json.loads(client.query_stats().json)
+        for key in ("cycles", "jobs_started_total", "jobs_submitted_total",
+                    "jobs_finished_total"):
+            check(stats[key] == twin.stats[key], f"{label}: stats {key}")
+        out["pages_compared"] = len(cursors)
+
+        # cancels over the wire: 1,000 pending and 100 running jobs
+        pend = sorted(twin.pending)[::max(1, len(twin.pending)
+                                          // CANCEL_PENDING)]
+        run = sorted(twin.running)[::max(1, len(twin.running)
+                                         // CANCEL_RUNNING)]
+        victims = pend[:CANCEL_PENDING] + run[:CANCEL_RUNNING]
+        t1 = time.perf_counter()
+        oks = [client.cancel(j).ok for j in victims]
+        dt = time.perf_counter() - t1
+        check(all(oks), f"{label}: a cancel was refused")
+        check([twin.cancel(j, now=tsim.now) for j in victims] == oks,
+              f"{label}: cancel replies differ from the twin's")
+        rows = same_service_state(f"{label} cancels", sched, twin,
+                                  client, twin_srv)
+        out["cancel"] = {"jobs": len(victims), "seconds": dt,
+                         "per_call_ms": dt * 1e3 / len(victims)}
+        out["launches"] = launches
+        print(f"[{label}] {len(cursors)} QueryJobsInfo pages, stream, "
+              f"cluster, summary, events and stats == twin; {len(victims)} "
+              f"cancels over the wire in {dt:.2f}s; == twin on {rows} job "
+              f"records; {time.perf_counter() - t0:.1f}s in the leg; queries "
+              f"at rest "
+              f"{json.dumps(out['query_at_rest'])}, during the warm tick "
+              f"{json.dumps(out['query_during_warm_tick'])}", flush=True)
+    finally:
+        client.close()
+        server.stop()
+    del sched, sim, twin, tsim, twin_srv, server
+    gc.collect()
+    import torch
+
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def daemon_config(path, tmp):
+    """The north-star cluster as a YAML config: phase 6's nodes (the same
+    seed), four disjoint partitions, a WAL and an archive under ``tmp``,
+    and no ``Scheduler:`` block: the defaults a site's config starts
+    from (``Solver: auto``, which on the card is the greedy kernel)."""
+    from cranesched_tpu_torch.ctld import SchedulerConfig
+
+    rng = np.random.default_rng(2)
+    sched, _, _ = build_cell(rng, False, SchedulerConfig(backfill=False))
+    from cranesched_tpu_torch.ops.resources import (
+        CPU_SCALE,
+        DIM_CPU,
+        DIM_MEM,
+        MEM_UNIT_BYTES,
+    )
+
+    lines = ["ClusterName: smoke", "Listen: 127.0.0.1:0",
+             f"Wal: {tmp}/wal/ctld.wal", f"Archive: {tmp}/archive.db",
+             "Nodes:"]
+    for node in sched.meta.nodes.values():
+        lines.append(
+            f"  - {{name: {node.name}, cpu: "
+            f"{int(node.total[DIM_CPU]) // CPU_SCALE}, memory: "
+            f"{int(node.total[DIM_MEM]) * MEM_UNIT_BYTES}, partitions: "
+            f"[{sorted(node.partitions)[0]}]}}")
+    lines += ["Partitions:"] + [f"  - name: p{i}" for i in range(4)]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return rng      # positioned after the node draws, as in phase 6
+
+
+class DaemonProc:
+    """``python3 -m cranesched_tpu_torch.ctld_main`` with its output in
+    files; killed by PID if still alive at the end."""
+
+    def __init__(self, tmp, tag, cfg):
+        import os
+        import subprocess
+
+        self.out = os.path.join(tmp, f"{tag}.out")
+        self.err = os.path.join(tmp, f"{tag}.err")
+        self.t0 = time.perf_counter()
+        with open(self.out, "w") as out, open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "cranesched_tpu_torch.ctld_main",
+                 "-c", cfg, "--sim", "--listen", "127.0.0.1:0"],
+                stdout=out, stderr=err)
+
+    def text(self, which="out"):
+        with open(self.out if which == "out" else self.err) as fh:
+            return fh.read()
+
+    def banner(self):
+        """(port, seconds from start to the banner); the banner must name
+        the card as the scheduler's device."""
+        import re
+
+        deadline = time.time() + DAEMON_WAIT_S
+        while time.time() < deadline:
+            lines = self.text().splitlines()
+            if lines:
+                m = re.search(r"listening on port (\d+)", lines[0])
+                check(m is not None and "device cuda" in lines[0],
+                      f"first stdout line: {lines[0]!r}")
+                return int(m.group(1)), time.perf_counter() - self.t0
+            check(self.proc.poll() is None,
+                  f"daemon exited {self.proc.returncode}: "
+                  f"{self.text('err')[-2000:]}")
+            time.sleep(0.05)
+        raise RuntimeError("chip_smoke check failed: no daemon banner")
+
+    def stop(self):
+        """SIGTERM; checks the exit code is 0 and returns the seconds
+        the daemon took to exit."""
+        import signal
+
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout=DAEMON_WAIT_S)
+        check(rc == 0, f"daemon exited {rc} on SIGTERM: "
+                       f"{self.text('err')[-2000:]}")
+        return time.perf_counter() - t0
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def stream_states(client):
+    from cranesched_tpu_torch.rpc import crane_pb2 as pb
+
+    req = pb.QueryJobsRequest(include_history=True)
+    return {j.job_id: (j.status, tuple(j.node_names))
+            for reply in client._stub.call_stream("QueryJobsStream", req,
+                                                  pb.QueryJobsReply)
+            for j in reply.jobs}
+
+
+def phase_daemon(poll_s=POLL_S):
+    """Leg (b): the daemon on the card (no ``--device``), 100,000 specs
+    over the wire with a second client querying every ``poll_s`` seconds,
+    SIGTERM, a restart from the WAL, and the held lease."""
+    import tempfile
+    import threading
+
+    from cranesched_tpu_torch.rpc import CtldClient
+
+    label = "daemon"
+    tmp = tempfile.mkdtemp(prefix="crane-daemon-")
+    cfg = f"{tmp}/ctld.yaml"
+    rng = daemon_config(cfg, tmp)
+    # phase 6's jobs, made to stay as they are once placed (no job ends
+    # or times out while the phase runs), so the state before the stop
+    # is the state a restart must show
+    specs = draw_specs(rng, N_JOBS)
+    for s in specs:
+        s.time_limit, s.sim_runtime = 86400, 1e6
+    gc.collect()
+    out = {"poll_s": poll_s}
+    procs = []
+    try:
+        first = DaemonProc(tmp, "first", cfg)
+        procs.append(first)
+        port, out["boot_to_banner_s"] = first.banner()
+        t_banner = time.time()
+        # a second leader on the same WAL, started now, must be refused
+        # while the first runs (it boots beside the submits)
+        second = DaemonProc(tmp, "second", cfg)
+        procs.append(second)
+        # a second client polls from the banner until the cycles settle:
+        # the real-time loop releases the lock for each solve, so these
+        # wait for the submits' chunks and the cycles' state phases only
+        lat = {"jobs": [], "cluster": []}
+        stop = threading.Event()
+        querier = start_querier(f"127.0.0.1:{port}", lat, stop, poll_s)
+        client = CtldClient(f"127.0.0.1:{port}", timeout=600.0)
+        try:
+            ids, dt = wire_submit(client, specs)
+            out["submit"] = {"jobs": len(ids), "seconds": dt,
+                             "jobs_per_s": len(ids) / dt}
+            print(f"[{label}] boot to banner {out['boot_to_banner_s']:.1f}s"
+                  f"; {len(ids)} submits in {dt:.1f}s", flush=True)
+
+            # two cycles with starts, then one that places nothing
+            deadline = time.time() + DAEMON_WAIT_S
+
+            def rows():
+                return json.loads(client.query_stats().json)["cycle_trace"]
+
+            while True:
+                trace = [r for r in rows() if r.get("solver") != "skip"]
+                placing = [r for r in trace if r.get("placed", 0) > 0]
+                if len(placing) >= 2 and trace[-1].get("placed", 0) == 0:
+                    break
+                check(time.time() < deadline,
+                      f"{label}: no settled state in {DAEMON_WAIT_S:.0f}s "
+                      f"({len(placing)} placing cycles)")
+                time.sleep(1.0)
+        finally:
+            stop.set()
+            querier.join(timeout=DAEMON_WAIT_S)
+        check(not querier.is_alive(), f"{label}: querier hung")
+        rc = second.proc.wait(timeout=DAEMON_WAIT_S)
+        check(rc != 0 and "holds the lease" in second.text("err"),
+              f"{label}: a second daemon on the held WAL exited {rc}")
+        out["query_during_cycles"] = {k: percentiles(v)
+                                      for k, v in lat.items()}
+        print(f"[{label}] settled {time.time() - t_banner:.1f}s after the "
+              f"banner; queries during the cycles "
+              f"{json.dumps(out['query_during_cycles'])}", flush=True)
+        stats = json.loads(client.query_stats().json)
+        trace = [r for r in stats["cycle_trace"] if r.get("solver") != "skip"]
+        out["first_cycle_s"] = (placing[0]["now"] - t_banner
+                                + placing[0]["total_ms"] / 1e3)
+        out["cycles"] = [{k: r.get(k) for k in (
+            "now", "solver", "device", "kernel_launches", "candidates",
+            "placed", "total_ms", "solve_ms", "solve_head_ms",
+            "solve_tail_ms", "lock_held_ms", "wal_fsyncs")} for r in trace]
+        # on the card, through greedy_place: the daemon's count started
+        # at 0 with its process, and each row holds its cycle's launches.
+        # A split cycle places its tail with one launch, an immediate
+        # cycle its batch; a cycle under the lookahead bound has no tail
+        check(all(r["device"] == "cuda" for r in trace),
+              f"{label}: cycle devices {[r['device'] for r in trace]}")
+        want = {"backfill-split": 1, "cuda-stream": 1, "cuda": 1,
+                "backfill": 0}
+        check(all(r["solver"] in want and r["kernel_launches"]
+                  == want[r["solver"]] for r in trace),
+              f"{label}: cycle solvers and launches "
+              f"{[(r['solver'], r['kernel_launches']) for r in trace]}")
+        out["launches"] = sum(r["kernel_launches"] for r in trace)
+        check(any(r["kernel_launches"] and r["placed"] for r in trace),
+              f"{label}: greedy_place placed nothing in the daemon")
+        before = stream_states(client)
+        check(set(ids) <= set(before), f"{label}: acked jobs missing")
+        running = sum(1 for s, _ in before.values() if s == "Running")
+        client.close()
+        out["stop_s"] = first.stop()
+        print(f"[{label}] cycles {json.dumps(out['cycles'])}; SIGTERM -> 0 "
+              f"in {out['stop_s']:.1f}s", flush=True)
+
+        third = DaemonProc(tmp, "restart", cfg)
+        procs.append(third)
+        port, out["restart_to_banner_s"] = third.banner()
+        client = CtldClient(f"127.0.0.1:{port}", timeout=600.0)
+        after = stream_states(client)
+        client.close()
+        lost = [j for j in ids if after.get(j) != before[j]]
+        check(not lost, f"{label}: {len(lost)} acked jobs changed over the "
+                        f"restart, e.g. {lost[:5]}")
+        err = third.text("err")
+        check(f"recovered {len(before)} jobs" in err,
+              f"{label}: recovery line: {err[-500:]}")
+        out["restart_stop_s"] = third.stop()
+        out.update(jobs=len(ids), running=running,
+                   pending=len(ids) - running,
+                   recovery_line=[ln for ln in err.splitlines()
+                                  if ln.startswith("recovered")][0])
+        print(f"[{label}] boot to banner {out['boot_to_banner_s']:.1f}s, "
+              f"{len(ids)} submits at {out['submit']['jobs_per_s']:.0f} "
+              f"jobs/s, first cycle done {out['first_cycle_s']:.1f}s after"
+              f" the banner; held lease refused; restart to banner "
+              f"{out['restart_to_banner_s']:.1f}s with every one of "
+              f"{len(ids)} acked jobs as before ({running} running); "
+              f"SIGTERM -> 0 in {out['restart_stop_s']:.1f}s", flush=True)
+    finally:
+        for p in procs:
+            p.kill()
+    return out
+
+
+def head_stretch(daemon, base):
+    """The daemon's split solves' heads (1,024 jobs each) over the same
+    head in process, ``base`` ms (a tick holds the lock, so its querier
+    waits instead of sharing the GIL with the solve)."""
+    daemon["head_stretch"] = [
+        r["solve_head_ms"] / base for r in daemon["cycles"]
+        if r["solver"] == "backfill-split"]
+    print(f"[daemon] polled every {daemon['poll_s']}s: split solves' heads "
+          f"over the warm tick's ({base:.1f} ms in process): "
+          f"{[round(x, 2) for x in daemon['head_stretch']]}", flush=True)
+
+
+def phase_controller():
+    """Phase 12: legs (a) and (b); returns the report and greedy_place's
+    launches by path (the ticks here, the daemon's cycles in its own
+    process, read from its trace rows)."""
+    service, launches = phase_service()
+    daemon = phase_daemon()
+    head_stretch(daemon, service["ticks"][-1]["solve_head_ms"])
+    return ({"service": service, "daemon": daemon,
+             "transport": "grpc over 127.0.0.1"},
+            {"rpc_ticks": launches, "daemon_cycles": daemon["launches"]})
+
 
 def main() -> int:
     try:
@@ -2506,9 +3142,14 @@ def run() -> int:
     paths.update(obs_paths)
     native_rep = timed("native", phase_native, twin)
     native_rep["cuda_solve_ms"] = obs["immediate"]["cold"]["solve_ms"]
+
+    # 12. the controller daemon over gRPC: the service in tick mode
+    # against an in-process twin, then the daemon with a restart
+    controller, rpc_paths = timed("controller", phase_controller)
+    paths.update(rpc_paths)
     launches = sum(paths.values())
 
-    # 12. the CPU checks the phases left to the worker processes
+    # 13. the CPU checks the phases left to the worker processes
     t0 = time.perf_counter()
     results = {label: f.result() for label, f in _checks.items()}
     print(f"[cpu-checks] all {len(results)} passed in {CPU_WORKERS} worker "
@@ -2579,6 +3220,7 @@ def run() -> int:
     print(json.dumps({"cycles": cycles}), flush=True)
     print(json.dumps({"obs": obs}), flush=True)
     print(json.dumps({"native": native_rep}), flush=True)
+    print(json.dumps({"controller": controller}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

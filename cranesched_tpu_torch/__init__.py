@@ -9,7 +9,12 @@ cycle of the default configuration (the time-axis solve of
 ``models/solver_time.py`` for the head, the greedy kernel for the
 tail), and the host commit.  ``tools/kattr.py`` attributes the greedy
 kernel's time per job to its stages with stripped CUDA variants
-(``csrc/kattr_variants.cu``).
+(``csrc/kattr_variants.cu``).  Around the cycle: the job lifecycle with
+its WAL and recovery (``ctld/``), the observability planes (``obs/``),
+and the controller daemon (``ctld_main.py``): the CraneCtld gRPC service
+and its client (``rpc/``), the YAML config, auth tokens and TLS
+(``utils/``, ``ctld/auth.py``), the leader's WAL lease and snapshots
+(``ha/``) and the bounded acquisition of the card (``parallel/``).
 
 Entry points run on ``torch.device("cuda")`` unless the caller passes
 ``device="cpu"``; without a CUDA device they raise.

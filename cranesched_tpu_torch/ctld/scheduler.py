@@ -53,12 +53,15 @@ SLOs, the flight recorder, the ``torch.profiler`` capture window and
 
 Semantics are the JAX package's, bit for bit.  What the port does not
 carry yet raises ``NotImplementedError`` naming its ROADMAP item: the
-sharded solver (A10), and the server loop's knobs (A9).  HA and
-federation are left out.
+sharded solver (A10) and the real node plane's dispatch pool (A9b).  HA
+replication (A13) and federation (A14) are left out: ``fed`` and
+``global_usage`` stay None, as on a single JAX controller.
 
 The cycle is an explicit ``schedule_cycle(now)`` call with virtual time;
 ``cycle_phases`` exposes it as a generator whose yielded closures (the
 solve, the dispatch drain) may run with the caller's lock released.
+A server (``rpc/server.py``) points ``cycle_kick`` at its loop's wakeup;
+every mutation that can change the next cycle's outcome calls it.
 """
 
 from __future__ import annotations
@@ -102,6 +105,7 @@ from cranesched_tpu_torch.ctld.resident import ResidentClusterState
 from cranesched_tpu_torch.ctld.runledger import RunLedger
 from cranesched_tpu_torch.device import resolve_device
 from cranesched_tpu_torch.models.gpu_solver import (
+    greedy_place,
     plan_streams,
     solve_greedy_gpu,
     solve_greedy_gpu_auto,
@@ -144,12 +148,63 @@ from cranesched_tpu_torch.obs import introspect
 from cranesched_tpu_torch.obs.events import EventLog
 from cranesched_tpu_torch.obs.flight import FlightRecorder
 from cranesched_tpu_torch.obs.jobtrace import JobTraceRecorder
+from cranesched_tpu_torch.obs.metrics import REGISTRY as _OBS
 from cranesched_tpu_torch.obs.slo import SloEngine
 from cranesched_tpu_torch.obs.trace import CycleTraceRing, solve_span
 from cranesched_tpu_torch.ops.resources import DIM_CPU, DIM_MEM
 from cranesched_tpu_torch.topo.place import solve_greedy_topo
 
 _LOG = logging.getLogger("cranesched.ctld")
+
+# cycle-plane metrics, under the JAX package's names (served by the
+# ctld's /metrics endpoint and QueryStats)
+_MET_CYCLES = _OBS.counter(
+    "crane_cycles_total", "scheduling cycles completed")
+_MET_PHASE = _OBS.histogram(
+    "crane_cycle_phase_seconds",
+    "wall time per cycle phase "
+    "(label phase=prelude|solve|commit|dispatch)")
+_MET_COMMIT_BATCH = _OBS.histogram(
+    "crane_commit_batch_jobs", "jobs committed per _commit batch",
+    buckets=tuple(float(2 ** k) for k in range(18)))
+_MET_LOCK = _OBS.histogram(
+    "crane_lock_held_seconds",
+    "server-lock-held time per cycle (prelude + commit, never solve)")
+_MET_SOLVE = _OBS.histogram(
+    "crane_solve_seconds",
+    "lock-released solve closure time (label backend)")
+_MET_STARTED = _OBS.counter(
+    "crane_jobs_started_total", "jobs started by the scheduler")
+_MET_PREEMPTED = _OBS.counter(
+    "crane_preempted_total", "running jobs evicted by preemption")
+_MET_PENDING = _OBS.gauge(
+    "crane_pending_jobs",
+    "pending queue depth (updated on submit/finish events)")
+_MET_RUNNING = _OBS.gauge(
+    "crane_running_jobs",
+    "running job count (updated on start/finish events)")
+_MET_SKIPS = _OBS.counter(
+    "crane_cycle_skips_total",
+    "cycles short-circuited by the no-op fingerprint (label reason)")
+_MET_TOPO_FRAG = _OBS.gauge(
+    "crane_topo_fragmentation",
+    "free-capacity fragmentation per topology level "
+    "(1 - largest free group / total free; label level)")
+_MET_TOPO_CROSS = _OBS.counter(
+    "crane_topo_cross_block_gangs_total",
+    "gangs placed across blocks by the spanning fallback")
+_MET_H2D = _OBS.counter(
+    "crane_solver_h2d_bytes_total",
+    "host->device bytes shipped for the solve's cluster state "
+    "(label mode=rebuild|patch)")
+_MET_RESIDENT = _OBS.counter(
+    "crane_resident_cycles_total",
+    "immediate-fit cycles served by the device-resident state "
+    "(label mode=rebuild|patch)")
+_MET_OVERLAP = _OBS.gauge(
+    "crane_resident_patch_overlap_share",
+    "share of resident patch cycles whose delta upload was pre-staged "
+    "(double-buffered) by the previous cycle")
 
 _REASON_MAP = {
     REASON_RESOURCE: PendingReason.RESOURCE,
@@ -213,13 +268,15 @@ class SchedulerConfig:
     # kernel; "device" the plain solve_greedy on the scheduler's device.
     # All are bit-identical on placements.  "sharded" is ROADMAP A10.
     solver: str = "cuda"
-    # the server's post-commit dispatch fan-out width (ROADMAP A9)
+    # the real node plane's post-commit dispatch fan-out width
+    # (ROADMAP A9b)
     dispatch_workers: int | None = None
     # incremental cycle state: the PendingTable candidate pass, delta
     # meta snapshots and the no-op-cycle fingerprint.  False rebuilds
     # from scratch every cycle (the parity oracle).
     incremental: bool = True
-    # the longest the server's event-driven loop sleeps (ROADMAP A9)
+    # the longest the server's event-driven loop sleeps when the next
+    # cycle is provably a no-op (rpc/server.py ``_sleep_interval``)
     cycle_idle_sleep: float = 30.0
     # keep the solve's ClusterState on the device across cycles and
     # patch only dirty rows (ctld/resident.py); effective only with
@@ -249,11 +306,8 @@ class SchedulerConfig:
             raise ValueError(f"solver must be one of {'|'.join(SOLVERS)}, "
                              f"got {self.solver!r}")
         if self.dispatch_workers is not None:
-            raise _not_ported("dispatch_workers (the server's dispatch "
-                              "pool)", "A9")
-        if self.cycle_idle_sleep != 30.0:
-            raise _not_ported("cycle_idle_sleep (the server's cycle "
-                              "loop)", "A9")
+            raise _not_ported("dispatch_workers (the real node plane's "
+                              "dispatch pool)", "A9b")
         if self.priority_type not in ("multifactor", "basic"):
             raise ValueError(f"priority_type must be multifactor|basic, "
                              f"got {self.priority_type!r}")
@@ -456,8 +510,17 @@ class JobScheduler:
         self.accounts = accounts
         self.account_meta = (AccountMetaContainer(meta.layout)
                              if accounts is not None else None)
+        # cluster-wide accounting and the federation plane (ROADMAP.md
+        # A14): None on a single controller, as in the JAX package, so
+        # the server's ``is not None`` gates read the same
+        self.global_usage = None
+        self.fed = None
         self.licenses = LicenseManager()
         self.submit_hook = submit_hook
+        # event-driven loop plumbing: the server points cycle_kick at
+        # its wakeup event; mutations that can change the next cycle's
+        # outcome call _kick() so a sleeping loop wakes immediately
+        self.cycle_kick: Callable[[], None] | None = None
         # timed preemption's deferred evictions: victim job_id -> (due
         # time, preemptor job_id); the prelude fires due entries
         self._deferred_evictions: dict[int, tuple[float, int]] = {}
@@ -555,6 +618,8 @@ class JobScheduler:
         # attribution is delta-based off the process-wide counter; the
         # profiler window is ticked at cycle boundaries
         self._cycle_compile_base = introspect.total_compiles()
+        # greedy_place's launches in this cycle (a delta off its count)
+        self._cycle_launch_base = greedy_place.launches
         self.profiler_window = introspect.ProfilerWindow(
             event_sink=lambda type, sev, detail="": self.events.emit(
                 type, sev, detail=detail))
@@ -639,23 +704,35 @@ class JobScheduler:
     # derivation and the no-op-cycle fingerprint
     # ------------------------------------------------------------------
 
+    def _kick(self) -> None:
+        """Wake the server's event-driven cycle loop (no-op standalone)."""
+        kick = self.cycle_kick
+        if kick is not None:
+            kick()
+
     def _on_pending_set(self, job_id: int, job: Job) -> None:
         self._table_upsert(job)
         if job.spec.array is not None:
             self._array_templates.add(job_id)
+        _MET_PENDING.set(len(self.pending))
+        self._kick()
 
     def _on_pending_del(self, job_id: int, job: Job) -> None:
         self._ptable.remove(job_id)
         self._array_templates.discard(job_id)
+        _MET_PENDING.set(len(self.pending))
+        self._kick()
 
     def _on_running_set(self, job_id: int, job: Job) -> None:
         if job.spec.alloc_only:
             self._alloc_only.add(job_id)
         self._run_epoch += 1
+        _MET_RUNNING.set(len(self.running))
 
     def _on_running_del(self, job_id: int, job: Job) -> None:
         self._alloc_only.discard(job_id)
         self._run_epoch += 1
+        _MET_RUNNING.set(len(self.running))
 
     @staticmethod
     def _dep_cols(job: Job) -> tuple[float, bool]:
@@ -711,9 +788,10 @@ class JobScheduler:
 
     def _table_refresh(self, job: Job) -> None:
         """Re-derive a pending job's row after an in-place mutation
-        (hold, modify, a dependency trigger)."""
+        (hold, modify, a dependency trigger) and wake the loop."""
         if job.job_id in self.pending:
             self._table_upsert(job)
+            self._kick()
 
     def _cycle_fingerprint(self) -> tuple:
         """Everything a zero-placement solve's outcome depends on, as
@@ -750,7 +828,9 @@ class JobScheduler:
         cycles out of the ring); only the snapshot / sort / solve /
         commit machinery is skipped."""
         self.stats["cycles"] += 1
+        _MET_CYCLES.inc()
         self.stats["skipped_cycles"] += 1
+        _MET_SKIPS.inc(reason=reason)
         self.flight.stamp("skip", detail=reason)
         ms = round((time.perf_counter() - t0) * 1e3, 3)
         self.stats["last_cycle_walltime"] = time.time()
@@ -907,6 +987,25 @@ class JobScheduler:
             self.jobtrace.stamp(job_id, 0, "submit", now)
         return job_id
 
+    def job_summary(self, user: str = "", partition: str = ""
+                    ) -> dict[str, int]:
+        """Per-status job counts (reference QueryJobSummary,
+        Crane.proto:1588) over pending + running + in-RAM history."""
+        counts: dict[str, int] = {}
+        for col in (self.pending, self.running, self.history):
+            for job in col.values():
+                if user and job.spec.user != user:
+                    continue
+                if partition and job.spec.partition != partition:
+                    continue
+                key = job.status.name
+                counts[key] = counts.get(key, 0) + 1
+        return counts
+
+    def queue(self) -> list[Job]:
+        """Pending then running jobs (the live queue a query reads)."""
+        return list(self.pending.values()) + list(self.running.values())
+
     def job_info(self, job_id: int) -> Job | None:
         """The job in any state: pending, running or finished."""
         return (self.pending.get(job_id) or self.running.get(job_id)
@@ -1032,6 +1131,7 @@ class JobScheduler:
                 self.wal.job_updated(job)
             self._cancel_kill_sent[job_id] = now
             self.dispatch_terminate(job_id, now)
+            self._kick()   # kill-intent renewal runs on the cycle thread
             return True
         return False
 
@@ -1148,6 +1248,7 @@ class JobScheduler:
                 self._limit_intents[job_id] = (float(time_limit), now)
                 self.dispatch_change_time_limit(job_id, float(time_limit),
                                                 now)
+                self._kick()   # intent re-sends run on the cycle thread
         if priority is not None:
             job.qos_priority = int(priority)
         if partition is not None:
@@ -1220,6 +1321,7 @@ class JobScheduler:
         self._status_queue.append(
             StatusChange(job_id, status, exit_code, now,
                          incarnation=queue_incarnation))
+        self._kick()   # Event.set is thread-safe (transport threads)
 
     def record_remote_spans(self, job_id: int, incarnation: int,
                             spans) -> int:
@@ -1259,6 +1361,7 @@ class JobScheduler:
         ``process_status_changes``)."""
         self._step_report_queue.append(
             (job_id, step_id, status, exit_code, now, incarnation))
+        self._kick()
 
     def process_status_changes(self) -> int:
         """Drain the queues (cycle step 1).  Returns #processed.  Every
@@ -1343,6 +1446,7 @@ class JobScheduler:
         self._ledger.remove(job.job_id)
         self.licenses.free(job.spec.licenses or {})
         self._free_run_limits(job)
+        self._kick()   # freed capacity: pending jobs may now place
 
     def _malloc_run_limits(self, job: Job) -> bool:
         """Schedule-time QoS limit check and usage take.  The take is
@@ -1641,6 +1745,7 @@ class JobScheduler:
         else:
             self.dispatch_terminate_step(job_id, step_id, now)
             self._step_cancel_sent[(job_id, step_id)] = now
+            self._kick()   # kill-intent renewal runs on the cycle thread
         if self.wal is not None:
             self.wal.job_updated(job)
         return True
@@ -1722,9 +1827,12 @@ class JobScheduler:
         if self.wal is not None:
             self.wal.job_updated(job)
         if step_id == 0 and not job.spec.alloc_only:
+            # the batch step is the job: feed the job-level machine and
+            # wake the loop, which may be deep in an idle sleep
             self._status_queue.append(StatusChange(
                 job_id, JobStatus(status.value), exit_code, now,
                 incarnation=job.requeue_count))
+            self._kick()
             return
         self._try_start_steps(job, now)
 
@@ -1935,6 +2043,7 @@ class JobScheduler:
         # introspection: per-cycle build attribution and the armed
         # profiler window's tick (cheap no-ops when idle)
         self._cycle_compile_base = introspect.total_compiles()
+        self._cycle_launch_base = greedy_place.launches
         self.profiler_window.tick()
         self.flight.stamp("cycle_begin")
         self._wal_begin()
@@ -2021,6 +2130,7 @@ class JobScheduler:
         lc = self.stats.get("last_cycle")
         if isinstance(lc, dict):
             lc["dispatch_ms"] = round(ms, 3)
+        _MET_PHASE.observe(ms / 1e3, phase="dispatch")
 
     def _cycle_body(self, now: float):
         t0 = time.perf_counter()
@@ -2029,6 +2139,7 @@ class JobScheduler:
             "solver": "", "solve_ms": 0.0,
             "preempted": 0, "backfilled": 0, "num_streams": 1,
         }
+        _MET_PENDING.set(len(self.pending))
         self._cycle_now = now
         self.process_status_changes()
         self._check_craned_timeouts(now)
@@ -2052,6 +2163,7 @@ class JobScheduler:
         self._noop_fp = None
 
         self.stats["cycles"] += 1
+        _MET_CYCLES.inc()
         candidates = self._pending_candidates(now)
         if self.jobtrace is not None and candidates:
             # first-sight "eligible" stamp per incarnation; the Job
@@ -2428,6 +2540,7 @@ class JobScheduler:
             trace["solve_ms"] += ms
             if part is not None:
                 trace[f"solve_{part}_ms"] = ms
+            _MET_SOLVE.observe(ms / 1e3, backend=label)
             return out
 
         return run
@@ -2435,6 +2548,7 @@ class JobScheduler:
     def _record_cycle_stats(self, t0, t_prelude, candidates, started,
                             t_end, solver: str) -> None:
         self.stats["jobs_started_total"] += len(started)
+        _MET_STARTED.inc(len(started))
         self.flight.stamp("commit", detail=str(len(started)))
         trace = self._cur_trace
         total_ms = (t_end - t0) * 1e3
@@ -2499,11 +2613,17 @@ class JobScheduler:
             placed=len(started),
             dirty_jobs=self._ptable.last_dirty,
             dirty_nodes=self.meta.last_snapshot_dirty,
+            # where the cycle ran, and greedy_place's launches in it
+            device=self.device.type,
+            kernel_launches=greedy_place.launches - self._cycle_launch_base,
         )
         if mode is not None:
             trace.update(resident=mode, h2d_rows=res.last_h2d_rows,
                          h2d_bytes=res.last_h2d_bytes,
                          patch_overlap=bool(res.last_overlap))
+            _MET_H2D.inc(res.last_h2d_bytes, mode=mode)
+            _MET_RESIDENT.inc(mode=mode)
+            _MET_OVERLAP.set(res.overlap_share())
         # introspection plane: the builds this cycle paid (delta off the
         # process-wide counter) and the card's memory.  A warm cycle
         # that pays a build is surfaced as an event, not just a counter.
@@ -2519,6 +2639,10 @@ class JobScheduler:
                     self.stats["cycles"], recompiles))
         self.cycle_trace.push(trace)
         self._skip_trace = None
+        _MET_PHASE.observe(prelude_ms / 1e3, phase="prelude")
+        _MET_PHASE.observe(solve_ms / 1e3, phase="solve")
+        _MET_PHASE.observe(commit_ms / 1e3, phase="commit")
+        _MET_LOCK.observe((prelude_ms + commit_ms) / 1e3)
         # a zero-placement solve with nothing preempted or in flight arms
         # the no-op fingerprint
         if (not started and trace.get("preempted", 0) == 0
@@ -2937,6 +3061,7 @@ class JobScheduler:
             bad = nodes_mat[rejected_rows]
             self._resident.mark_diverged(np.unique(bad[bad >= 0]))
         self._ledger_add_batch(started_jobs, now)
+        _MET_COMMIT_BATCH.observe(len(started_jobs))
         wal = self.wal
         trace = self.jobtrace
         for job in started_jobs:
@@ -3010,11 +3135,15 @@ class JobScheduler:
         return topo
 
     def _update_topo_fragmentation(self, topo, avail, total, alive) -> None:
-        """Leaf-level free-capacity fragmentation of the cycle snapshot
-        (a free node is alive with its full capacity available)."""
+        """Free-capacity fragmentation of the cycle snapshot: the gauge
+        per level, the leaf level's in the trace (a free node is alive
+        with its full capacity available)."""
         free = np.asarray(alive) & (np.asarray(avail)
                                     == np.asarray(total)).all(axis=1)
-        self._cur_trace["topo_frag"] = topo.fragmentation(free)[0][1]
+        frags = topo.fragmentation(free)
+        for name, frag in frags:
+            _MET_TOPO_FRAG.set(frag, level=name)
+        self._cur_trace["topo_frag"] = frags[0][1]
 
     def _note_topo(self, topo, ordered: list[Job], info) -> None:
         """Per-gang locality verdicts: trace fields, stats and each job's
@@ -3030,6 +3159,8 @@ class JobScheduler:
             self.stats.get("topo_in_block_total", 0) + n_in)
         self.stats["topo_cross_block_total"] = (
             self.stats.get("topo_cross_block_total", 0) + n_cross)
+        if n_cross:
+            _MET_TOPO_CROSS.inc(n_cross)
         for i, job in enumerate(ordered):
             job.cross_block = bool(crs[i])
             job.topo_block = (
@@ -3289,6 +3420,7 @@ class JobScheduler:
         victim = self.running.get(victim_id)
         if victim is None:
             return
+        _MET_PREEMPTED.inc()
         self._cur_trace["preempted"] = (
             self._cur_trace.get("preempted", 0) + 1)
         self.stats["jobs_preempted_total"] = (

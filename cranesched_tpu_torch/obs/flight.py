@@ -21,8 +21,9 @@ neither the phase that hung nor the stack it hung on:
   import -> CUDA init -> device enum -> kernel build -> first launch ->
   steady state); :func:`read_heartbeat` parses the file tolerantly (a
   probe killed mid-write leaves a torn last line, which is dropped,
-  never raised on).  The probe that stamps them is the device
-  acquisition's (ROADMAP.md A9).
+  never raised on).  The device acquisition (``parallel/acquire.py``)
+  stamps the first four; the warm tail is the bench probe's (ROADMAP.md
+  A12).
 
 * :func:`kernel_cache_stats` -- the port compiles at run time only its
   CUDA kernels (``kernels/build.py``, nvcc) and the native solver

@@ -7,9 +7,12 @@ topology, hostlist, accounting, license, packing, preemption, WAL,
 archive, accounts-store, metrics and observability modules among them),
 runs a 16-node scheduling cycle on the CPU with a topology, a license, a
 packed job, a dependency, an array, a WAL and the job trace, recovers a
-second scheduler from that WAL, and runs a cycle with the native solver
-under a profiler capture.  ``chip_smoke.py`` is checked by an
-AST scan of its imports.
+second scheduler from that WAL, runs a cycle with the native solver
+under a profiler capture, and serves ``etc/config.yaml``'s cluster over
+gRPC (the daemon's modules: config, lease, snapshot, server and client).
+``chip_smoke.py`` and every source of the port are checked by an AST
+scan of their imports, and the port's ``crane_pb2`` is the JAX
+package's byte for byte.
 """
 
 import ast
@@ -121,6 +124,28 @@ _CHILD = textwrap.dedent("""
     auto.schedule_cycle(now=end + 1)
     assert auto.explain_pending(jid, end)["gate"] == "held"
     assert auto.profiler_window.status()["captures_done"] == 1
+    # the daemon's modules: config -> build -> lease -> serve -> client
+    from cranesched_tpu_torch.craned.sim import SimCluster as Sim
+    from cranesched_tpu_torch.ha import LeaderLease, capture_snapshot
+    from cranesched_tpu_torch.rpc import CtldClient, crane_pb2 as pb, serve
+    from cranesched_tpu_torch.utils.config import load_config
+    cfg = load_config("etc/config.yaml")
+    meta2, sched2 = cfg.build(device="cpu")
+    lease = LeaderLease(os.path.join(tmp, "d.wal"))
+    assert lease.acquire() == 1
+    for node in meta2.nodes.values():
+        node.alive = True
+    sim2 = Sim(sched2)
+    sim2.wire(sched2)
+    server, port = serve(sched2, sim=sim2, tick_mode=True)
+    client = CtldClient("127.0.0.1:%d" % port)
+    assert client.submit(pb.JobSpec(partition="cpu", res=pb.ResourceSpec(
+        cpu=1.0, mem_bytes=1 << 30), sim_runtime=5.0)).job_id == 1
+    assert list(client.tick(1.0).started) == [1]
+    assert capture_snapshot(sched2)["jobs"][0]["job_id"] == 1
+    client.close()
+    server.stop()
+    lease.release()
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("OK", len(started), end)
@@ -139,7 +164,12 @@ def test_port_imports_without_jax_and_runs_a_cycle():
                 "ctld.archive", "ctld.acct_store", "obs", "obs.metrics",
                 "obs.trace", "obs.events", "obs.slo", "obs.jobtrace",
                 "obs.flight", "obs.introspect", "ctld.explain",
-                "utils.native"):
+                "utils.native", "rpc", "rpc.consts", "rpc.crane_pb2",
+                "rpc.stub", "rpc.convert", "rpc.interceptors",
+                "rpc.client", "rpc.server", "utils.logging",
+                "utils.filelock", "utils.pki", "utils.config",
+                "ctld.auth", "ha", "ha.lease", "ha.snapshot",
+                "parallel", "parallel.acquire", "ctld_main"):
         assert f"cranesched_tpu_torch.{mod}" in mods, mod
     code = _CHILD.format(blocked=BLOCKED, mods=mods)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -168,3 +198,16 @@ def test_port_sources_import_nothing_of_jax():
     for path in PORT.rglob("*.py"):
         bad = _imported_roots(path) & set(BLOCKED)
         assert not bad, f"{path}: {bad}"
+
+
+def test_crane_pb2_is_the_jax_packages_byte_for_byte():
+    """Both packages register ``crane.proto`` in protobuf's default
+    descriptor pool: a copy that differed by one byte of the descriptor
+    would conflict there.  Identical, they share the message classes."""
+    jax_pb2 = ROOT / "cranesched_tpu" / "rpc" / "crane_pb2.py"
+    port_pb2 = PORT / "rpc" / "crane_pb2.py"
+    assert port_pb2.read_bytes() == jax_pb2.read_bytes()
+    from cranesched_tpu.rpc import crane_pb2 as a
+    from cranesched_tpu_torch.rpc import crane_pb2 as b
+    assert a.SubmitJobRequest is b.SubmitJobRequest
+    assert a.DESCRIPTOR.serialized_pb == b.DESCRIPTOR.serialized_pb
