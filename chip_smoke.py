@@ -60,7 +60,7 @@ Phases (any failure exits non-zero and prints no result):
    each) through the best-fit-block solve: every in-block gang's nodes
    share one leaf, spanning gangs are flagged and some exist; in-block/
    cross counts and the solve's ms and us per job are printed;
-8. packed: 20,000 candidates, 10% packed (4-32 tasks over 1-4 nodes
+8. packed: 5,000 candidates, 10% packed (4-32 tasks over 1-4 nodes
    with a per-task request), 2% exclusive, the rest plain, one cycle
    through the packed solve: every started packed job's task layout
    sums to ntasks within the per-node bounds, every exclusive job holds
@@ -162,10 +162,36 @@ Phases (any failure exits non-zero and prints no result):
 13. the CPU checks: every plain version and CPU replay above runs in
    one of ``CPU_WORKERS`` worker processes beside the card's phases;
    the script waits for all of them and fails on any failure;
-14. one JSON line each for the cycles, the lifecycle, the obs phase, the
-   native solver and the controller, one describing every kernel, then
-   the card line, then the result line ``{"ok": true, "device":
-   {...}}``.
+14. the real node plane, once the workers are gone:
+   ``python3 -m cranesched_tpu_torch.ctld_main -c <yaml>`` on the card
+   with no ``--sim`` (phase 12's cluster, ``CranedTimeoutSec: 10``, and
+   two nodes under host names that resolve here in a partition of their
+   own), 100,000 of phase 12's draws as real scripts (echo the job id,
+   node and shell PID, sleep 1-8 s, 2% ``exit 3``) and ten sleepers on
+   the gang nodes, then ``NP_CRANEDS`` real ``craned_main`` processes (a
+   quarter a partition, each a configured node with its CPUs and
+   memory) and the two gang nodes register.  Real-time cycles for
+   ``NP_RUN_S`` from the last registration, sampled: no alive node runs
+   more CPUs or memory than it has; every finished job's output names
+   the nodes the ctld recorded, the ``exit 3`` jobs report 3.  Then the
+   ten sleepers cancelled (their shells gone), the second gang node's
+   craned SIGKILLed while two long keepers run there (its node down,
+   both requeued, none left running there) and restarted (alive again),
+   a 2-node ``coord fence`` gang on the resolvable pair (both ranks'
+   data on both), the node-side spans of the window's latest finished
+   jobs (each must have them), SIGTERM to every process (each exits 0).
+   Every cycle is on the card with greedy_place launched as the cycle's
+   shape says.  Printed: registration seconds, each cycle's times, steps
+   finished per second, the span percentiles (the cycle's start to the
+   push's send, the end of its state phases to the send, receipt to
+   step start), the supervisors' spawn times, the time from SIGKILL to
+   node down, the heads' stretch over phase 12's in-process head, the
+   dispatcher's pool size, the host's cgroup flavour (read, not built),
+   the rendezvous bind failures and when each step ended;
+15. one JSON line each for the cycles, the lifecycle, the obs phase, the
+   native solver, the controller and the node plane, one describing
+   every kernel, then the card line, then the result line ``{"ok":
+   true, "device": {...}}``.
 
 It imports nothing of the JAX package.  The kernel build goes to
 ``build/kernels/`` (see ``cranesched_tpu_torch/kernels/build.py``).
@@ -192,8 +218,10 @@ BIG_GANGS = N_NODES * 3 // 40
 LEAF = 40
 SPINE_LEAVES = 25
 TOPO_GANGS = N_NODES
-# the packed cycle's candidates, and the preemption burst's high-QoS jobs
-PACKED_JOBS = 2 * N_NODES
+# the packed cycle's candidates (halved twice for the script's time
+# limit: its per-job loop takes ~2 ms a job), and the preemption burst's
+# high-QoS jobs
+PACKED_JOBS = N_NODES // 2
 PREEMPT_BURST = N_NODES // 10
 # the timed what-if on the CPU takes ~0.1-0.4 s a preemptor at this size
 # (its [M, T, R] steps): it is held against the card on this many
@@ -219,6 +247,78 @@ DESIGN = "owned-smem-1barrier"
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+# every process this run starts inherits this variable (the craned and
+# the supervisor pass their environment on to the steps), so the ones
+# that outlive their parent (a craned's supervisors and scripts after a
+# SIGKILL, or after a failed check) are still found and stopped
+RUN_MARK = "CRANE_SMOKE_RUN"
+
+
+def mark_processes() -> None:
+    """Tag this run's processes, and adopt its orphans (Linux
+    ``PR_SET_CHILD_SUBREAPER``), so that ``stop_marked`` can reap them."""
+    import ctypes
+    import os
+
+    os.environ[RUN_MARK] = f"{os.getpid()}-{time.time_ns()}"
+    ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+
+
+def _marked_pids() -> list[int]:
+    import os
+
+    mark = f"{RUN_MARK}={os.environ.get(RUN_MARK, '')}".encode()
+    pids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit() or int(d) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{d}/environ", "rb") as fh:
+                env = fh.read().split(b"\0")
+            with open(f"/proc/{d}/stat") as fh:
+                state = fh.read().rpartition(")")[2].split()[0]
+        except OSError:
+            continue
+        # multiprocessing's resource tracker ends when this process does
+        if (mark in env and state != "Z"
+                and b"resource_tracker" not in _cmdline(d)):
+            pids.append(int(d))
+    return pids
+
+
+def stop_marked() -> list[str]:
+    """SIGKILL every live process of this run but this one, then reap
+    this process's exited children; returns the command lines of those
+    that were live."""
+    import os
+    import signal
+
+    if RUN_MARK not in os.environ:
+        return []
+    seen = []
+    for _ in range(10):
+        pids = _marked_pids()
+        if not pids:
+            break
+        seen += [(p, _cmdline(p)) for p in pids
+                 if p not in {q for q, _ in seen}]
+        for pid in pids:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        time.sleep(0.2)
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            break
+        if pid == 0:
+            break
+    return [f"{pid} " + cmd.replace(b"\0", b" ").decode(errors="replace")[:120]
+            for pid, cmd in seen]
 
 
 _pool = None
@@ -2789,52 +2889,55 @@ def phase_service():
     return out, launches
 
 
-def daemon_config(path, tmp):
+def daemon_config(path, tmp, extra_nodes=(), extra_yaml=()):
     """The north-star cluster as a YAML config: phase 6's nodes (the same
     seed), four disjoint partitions, a WAL and an archive under ``tmp``,
     and no ``Scheduler:`` block: the defaults a site's config starts
-    from (``Solver: auto``, which on the card is the greedy kernel)."""
-    from cranesched_tpu_torch.ctld import SchedulerConfig
-
+    from (``Solver: auto``, which on the card is the greedy kernel).
+    ``extra_nodes``: (name, cpu, memory bytes, partition) appended after
+    them, their partitions too; ``extra_yaml``: lines appended as they
+    are.
+    Returns the generator and the configured nodes as such tuples."""
     rng = np.random.default_rng(2)
-    sched, _, _ = build_cell(rng, False, SchedulerConfig(backfill=False))
-    from cranesched_tpu_torch.ops.resources import (
-        CPU_SCALE,
-        DIM_CPU,
-        DIM_MEM,
-        MEM_UNIT_BYTES,
-    )
-
+    # build_cell's node draws (disjoint partitions), without its scheduler
+    rows = []
+    for i in range(N_NODES):
+        cpu = int(rng.integers(32, 129))
+        mem = int(rng.integers(64, 513)) << 30
+        rows.append((f"b{i:05d}", cpu, mem, f"p{i % 4}"))
     lines = ["ClusterName: smoke", "Listen: 127.0.0.1:0",
              f"Wal: {tmp}/wal/ctld.wal", f"Archive: {tmp}/archive.db",
              "Nodes:"]
-    for node in sched.meta.nodes.values():
-        lines.append(
-            f"  - {{name: {node.name}, cpu: "
-            f"{int(node.total[DIM_CPU]) // CPU_SCALE}, memory: "
-            f"{int(node.total[DIM_MEM]) * MEM_UNIT_BYTES}, partitions: "
-            f"[{sorted(node.partitions)[0]}]}}")
-    lines += ["Partitions:"] + [f"  - name: p{i}" for i in range(4)]
+    for name, cpu, mem, part in rows + list(extra_nodes):
+        lines.append(f"  - {{name: {name}, cpu: {cpu}, memory: {mem}, "
+                     f"partitions: [{part}]}}")
+    parts = [f"p{i}" for i in range(4)]
+    parts += sorted({part for *_, part in extra_nodes} - set(parts))
+    lines += ["Partitions:"] + [f"  - name: {p}" for p in parts]
+    lines += list(extra_yaml)
     with open(path, "w") as fh:
         fh.write("\n".join(lines) + "\n")
-    return rng      # positioned after the node draws, as in phase 6
+    # rng is positioned after the node draws, as in phase 6
+    return rng, rows
 
 
 class DaemonProc:
     """``python3 -m cranesched_tpu_torch.ctld_main`` with its output in
     files; killed by PID if still alive at the end."""
 
-    def __init__(self, tmp, tag, cfg):
+    def __init__(self, tmp, tag, cfg, args=("--sim",)):
         import os
         import subprocess
 
         self.out = os.path.join(tmp, f"{tag}.out")
         self.err = os.path.join(tmp, f"{tag}.err")
         self.t0 = time.perf_counter()
+        # no --device on the card: the daemon's default is the card
+        device = () if DEVICE == "cuda" else ("--device", DEVICE)
         with open(self.out, "w") as out, open(self.err, "w") as err:
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", "cranesched_tpu_torch.ctld_main",
-                 "-c", cfg, "--sim", "--listen", "127.0.0.1:0"],
+                 "-c", cfg, *args, "--listen", "127.0.0.1:0", *device],
                 stdout=out, stderr=err)
 
     def text(self, which="out"):
@@ -2851,7 +2954,7 @@ class DaemonProc:
             lines = self.text().splitlines()
             if lines:
                 m = re.search(r"listening on port (\d+)", lines[0])
-                check(m is not None and "device cuda" in lines[0],
+                check(m is not None and f"device {DEVICE}" in lines[0],
                       f"first stdout line: {lines[0]!r}")
                 return int(m.group(1)), time.perf_counter() - self.t0
             check(self.proc.poll() is None,
@@ -2900,19 +3003,20 @@ def phase_daemon(poll_s=POLL_S):
     label = "daemon"
     tmp = tempfile.mkdtemp(prefix="crane-daemon-")
     cfg = f"{tmp}/ctld.yaml"
-    rng = daemon_config(cfg, tmp)
-    # phase 6's jobs, made to stay as they are once placed (no job ends
-    # or times out while the phase runs), so the state before the stop
-    # is the state a restart must show
-    specs = draw_specs(rng, N_JOBS)
-    for s in specs:
-        s.time_limit, s.sim_runtime = 86400, 1e6
+    rng, _ = daemon_config(cfg, tmp)
     gc.collect()
     out = {"poll_s": poll_s}
     procs = []
     try:
         first = DaemonProc(tmp, "first", cfg)
         procs.append(first)
+        # phase 6's jobs (drawn while the daemon boots), made to stay as
+        # they are once placed (no job ends or times out while the phase
+        # runs), so the state before the stop is the state a restart
+        # must show
+        specs = draw_specs(rng, N_JOBS)
+        for s in specs:
+            s.time_limit, s.sim_runtime = 86400, 1e6
         port, out["boot_to_banner_s"] = first.banner()
         t_banner = time.time()
         # a second leader on the same WAL, started now, must be refused
@@ -3045,12 +3149,664 @@ def phase_controller():
             {"rpc_ticks": launches, "daemon_cycles": daemon["launches"]})
 
 
+# ---------------- 14. the real node plane ----------------
+
+# real craned_main processes, a quarter per partition.  The card's
+# host (8 cores) does not carry 32 beside a 10,002-node ctld: each wave
+# of ~200 steps spawns ~200 Python supervisors (1.8 s each on average)
+# while the ctld's backfill head, which hands the GIL over ~100 times a
+# job, stretched to 53 s on an H100 host (PERF.md §6)
+NP_CRANEDS = 16
+NP_RUN_S = 30.0            # real-time cycles once the craneds registered
+NP_CANCEL = 10             # running jobs cancelled
+NP_PING_S = 2.0            # the craneds' ping interval
+NP_CRANED_TIMEOUT_S = 10   # the ctld's CranedTimeoutSec
+NP_FAIL_SHARE = 0.02       # jobs whose script ends with ``exit 3``
+NP_SAMPLES = 2             # oversubscription samples in the run
+NP_TRACE_JOBS = 50         # completed jobs whose node-side spans are read
+NP_TRACE_THREADS = 8       # their QueryJobSummary calls in flight at once
+NP_WAIT_S = 180.0          # the longest any one wait of the phase may take
+# a poll of the node states (QueryClusterInfo: 10,002 nodes) costs the
+# ctld ~0.1 s of Python under its lock: polled faster it starves the
+# cycle it waits for
+NP_POLL_S = 1.0
+
+
+def host_cgroup(root="/sys/fs/cgroup"):
+    """The host's cgroup flavour as ``craned.cgroup.make_cgroups`` would
+    find it, read without building a backend (which would create
+    ``crane`` directories on a writable host): v2 when ``cgroup.controllers``
+    is at the top, else v1 when the cpu or memory hierarchy is writable;
+    a host with neither gets the disabled v2 backend.  The craneds here
+    run with cgroups off (``CranedProc``)."""
+    import os
+
+    def writable(path):
+        return os.path.isdir(path) and os.access(path, os.W_OK)
+
+    if os.path.isfile(os.path.join(root, "cgroup.controllers")):
+        return {"version": 2, "enabled": writable(root),
+                "class": "CgroupV2"}
+    v1 = [c for c in ("cpu", "memory", "freezer", "cpuset", "devices")
+          if writable(os.path.join(root, c))]
+    if "cpu" in v1 or "memory" in v1:
+        return {"version": 1, "enabled": True, "class": "CgroupV1",
+                "writable_controllers": v1}
+    return {"version": 2, "enabled": False, "class": "CgroupV2"}
+
+
+def resolvable_names():
+    """Two distinct host names that resolve to an IPv4 address of this
+    host: a gang's rendezvous address is '<rank-0 node name>:<port>',
+    served by the rank-0 supervisor on 0.0.0.0."""
+    import socket
+
+    names = []
+    for name in ("localhost", socket.gethostname(), "runsc", "vm"):
+        try:
+            socket.gethostbyname(name)
+        except OSError:
+            continue
+        if name and name not in names:
+            names.append(name)
+    check(len(names) >= 2, f"two resolvable host names: {names}")
+    return names[:2]
+
+
+class CranedProc:
+    """``python3 -m cranesched_tpu_torch.craned_main`` for one configured
+    node, its output in files; ``start`` again restarts it."""
+
+    def __init__(self, tmp, name, port, cpu, mem, part):
+        import os
+
+        workdir = os.path.join(tmp, "w", name)
+        os.makedirs(workdir, exist_ok=True)
+        self.tmp, self.name, self.runs = tmp, name, 0
+        # the craneds of one host would share the host's cgroup tree,
+        # and one job's cgroup (crane/job_<id>) with it: the first member
+        # of a gang to end would tear the other's down.  Each runs with
+        # a cgroup root that does not exist, so cgroups are off
+        self.argv = [sys.executable, "-m", "cranesched_tpu_torch.craned_main",
+                     "--name", name, "--ctld", f"127.0.0.1:{port}",
+                     "--cpu", str(cpu), "--memory", str(mem),
+                     "--partitions", part, "--workdir", workdir,
+                     "--ping-interval", str(NP_PING_S),
+                     "--cgroup-root", os.path.join(workdir, "no-cgroup"),
+                     "--metrics-port", "0"]
+        self.start()
+
+    def start(self):
+        import subprocess
+
+        self.runs += 1
+        tag = f"{self.tmp}/craned-{self.name}-{self.runs}"
+        self.out, self.err = tag + ".out", tag + ".err"
+        with open(self.out, "w") as out, open(self.err, "w") as err:
+            self.proc = subprocess.Popen(self.argv, stdout=out, stderr=err)
+
+    def text(self, which="out"):
+        with open(self.out if which == "out" else self.err) as fh:
+            return fh.read()
+
+    def metrics(self) -> str:
+        import re
+        import urllib.request
+
+        m = re.search(r"metrics: http://[^:]+:(\d+)/metrics", self.text())
+        check(m is not None, f"craned {self.name}: no metrics line")
+        return urllib.request.urlopen(
+            f"http://127.0.0.1:{m.group(1)}/metrics",
+            timeout=30).read().decode()
+
+    def term(self):
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+
+    def wait(self) -> int:
+        return self.proc.wait(timeout=NP_WAIT_S)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def spawn_histogram(texts):
+    """``crane_supervisor_spawn_seconds`` summed over the craneds'
+    /metrics: count, mean, and the bucket bounds holding p50 and p99."""
+    import math
+
+    buckets, total, count = {}, 0.0, 0
+    for text in texts:
+        for line in text.splitlines():
+            name, _, value = line.rpartition(" ")
+            if name.startswith("crane_supervisor_spawn_seconds_bucket"):
+                le = name.split('le="')[1].split('"')[0]
+                buckets[le] = buckets.get(le, 0) + float(value)
+            elif name.startswith("crane_supervisor_spawn_seconds_sum"):
+                total += float(value)
+            elif name.startswith("crane_supervisor_spawn_seconds_count"):
+                count += int(float(value))
+    check(count > 0, "no supervisor spawn was measured")
+    bounds = sorted((math.inf if k == "+Inf" else float(k), v)
+                    for k, v in buckets.items())
+
+    def quantile(q):
+        return next(b for b, c in bounds if c >= q * count)
+
+    return {"count": count, "mean_s": total / count,
+            "p50_le_s": quantile(0.5), "p99_le_s": quantile(0.99)}
+
+
+def stream_jobs(client):
+    """Every job (history too) as ``JobInfo`` by id."""
+    from cranesched_tpu_torch.rpc import crane_pb2 as pb
+
+    req = pb.QueryJobsRequest(include_history=True)
+    return {j.job_id: j
+            for reply in client._stub.call_stream("QueryJobsStream", req,
+                                                  pb.QueryJobsReply)
+            for j in reply.jobs}
+
+
+def wait_until(pred, what, timeout=NP_WAIT_S, pause=0.2):
+    """Wait for ``pred``; ``what`` (a string, or a function giving one
+    at the deadline) names it in the failure."""
+    deadline = time.time() + timeout
+    while not pred():
+        if time.time() >= deadline:
+            check(False, f"node-plane: {what() if callable(what) else what}"
+                         f" within {timeout:.0f}s")
+        time.sleep(pause)
+
+
+def node_plane_specs(rng, tmp):
+    """Phase 12's draws as real scripts: each echoes its job id, node
+    and shell PID to its output file and sleeps 1-8 s; ``NP_FAIL_SHARE``
+    of them then ``exit 3``."""
+    specs = draw_specs(rng, N_JOBS)
+    sleeps = rng.integers(1, 9, N_JOBS)
+    fails = rng.random(N_JOBS) < NP_FAIL_SHARE
+    for i, s in enumerate(specs):
+        s.script = (f"echo $CRANE_JOB_ID $CRANE_NODE_NAME $$\n"
+                    f"sleep {sleeps[i]}\n" + ("exit 3\n" if fails[i] else ""))
+        s.output_path = f"{tmp}/out/%j.out"
+    return specs, fails
+
+
+def _cmdline(pid) -> bytes:
+    """``pid``'s command line, or b'' once it has exited."""
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as fh:
+            return fh.read()
+    except OSError:
+        return b""
+
+
+def _proc_tagged(pid, tag) -> bool:
+    """Is ``pid`` a live process whose command line holds ``tag``?"""
+    return tag.encode() in _cmdline(pid)
+
+
+def _output_lines(tmp, jid):
+    import os
+
+    path = f"{tmp}/out/{jid}.out"
+    if not os.path.exists(path):
+        return []
+    with open(path) as fh:
+        return [ln.split() for ln in fh.read().splitlines() if ln.strip()]
+
+
+def phase_node_plane(base_head_ms):
+    """Phase 14: ``ctld_main`` on the card with no ``--sim``, 10,002
+    configured nodes, ``NP_CRANEDS`` real ``craned_main`` processes (and
+    two more for a gang under names that resolve here), 100,000 real
+    scripts; cancels, a craned's SIGKILL and restart, a ``coord fence``
+    gang, SIGTERM.  Returns the report and greedy_place's launches in
+    the ctld's cycles (its own process, read from its trace rows)."""
+    import os
+    import tempfile
+
+    from cranesched_tpu_torch.rpc import CtldClient
+    from cranesched_tpu_torch.rpc.dispatcher import GrpcDispatcher
+
+    label = "node-plane"
+    t_phase, marks = time.time(), {}
+
+    def mark(step):
+        """When ``step`` ended, in seconds from the phase's start."""
+        marks[step] = time.time() - t_phase
+
+    tmp = tempfile.mkdtemp(prefix="crane-nodes-")
+    os.makedirs(f"{tmp}/out")
+    gang_names = resolvable_names()
+    cfg = f"{tmp}/ctld.yaml"
+    gang_nodes = [(n, 8, 16 << 30, "gang") for n in gang_names]
+    # the job trace keeps every job's timeline (the default keeps 4,096
+    # live ones, and the running jobs' node-side spans are read below)
+    rng, rows = daemon_config(
+        cfg, tmp, extra_nodes=gang_nodes,
+        extra_yaml=["Scheduler:",
+                    f"  CranedTimeoutSec: {NP_CRANED_TIMEOUT_S}",
+                    "Observability:",
+                    f"  JobTraceCapacity: {2 * N_JOBS}"])
+    chosen = []
+    for p in range(4):
+        chosen += [r for r in rows if r[3] == f"p{p}"][:NP_CRANEDS // 4]
+    out = {"craneds": len(chosen), "gang_nodes": gang_names,
+           "configured_nodes": len(rows) + len(gang_nodes),
+           "host_cgroup": host_cgroup(),
+           "dispatch_workers": GrpcDispatcher.default_workers(
+               len(rows) + len(gang_nodes))}
+    ctld, craneds, trace_rows = None, {}, {}
+    try:
+        ctld = DaemonProc(tmp, "ctld", cfg, args=())
+        specs, fails = node_plane_specs(rng, tmp)   # while it boots
+        port, out["boot_to_banner_s"] = ctld.banner()
+        mark("banner")
+        banner = ctld.text().splitlines()[0]
+        check("(real node plane," in banner, f"{label}: banner {banner!r}")
+        client = CtldClient(f"127.0.0.1:{port}", timeout=600.0)
+
+        def alive():
+            return {n.name for n in client.query_cluster().nodes
+                    if n.state != "DOWN"}
+
+        def rows_now():
+            for r in json.loads(client.query_stats().json)["cycle_trace"]:
+                trace_rows[(r["now"], r.get("total_ms"))] = r
+
+        # 1. the backlog first (its submits then share the ctld with its
+        # idle cycles only), with the ten jobs to cancel: long sleepers
+        # on the gang nodes, where no backlog job may end by itself
+        # before the kill lands
+        from cranesched_tpu_torch.rpc import crane_pb2 as pb
+
+        ids, dt = wire_submit(client, specs)
+        tags = {}
+        for k in range(NP_CANCEL):
+            jid = client.submit(pb.JobSpec(
+                partition="gang", time_limit=3600,
+                res=pb.ResourceSpec(cpu=1.0, mem_bytes=1 << 30),
+                # the trailing echo keeps bash from exec'ing the sleep,
+                # so $$ stays the tagged shell
+                script=f"echo $CRANE_JOB_ID $CRANE_NODE_NAME $$ # npc{k}\n"
+                       "sleep 600\necho done\n",
+                output_path=f"{tmp}/out/%j.out")).job_id
+            tags[jid] = f"# npc{k}"
+        # and two keepers on the second gang node, whose craned is the
+        # one SIGKILLed: the ctld's view of a backlog node lags its
+        # craned by up to a cycle, so its "running" jobs may have ended
+        keepers = []
+        for k in range(2):
+            jid = client.submit(pb.JobSpec(
+                partition="gang", time_limit=3600,
+                include_nodes=[gang_names[1]],
+                res=pb.ResourceSpec(cpu=1.0, mem_bytes=1 << 30),
+                script=f"echo $CRANE_JOB_ID $CRANE_NODE_NAME $$ # npk{k}\n"
+                       "sleep 600\necho done\n",
+                output_path=f"{tmp}/out/%j.out")).job_id
+            keepers.append(jid)
+            tags[jid] = f"# npk{k}"
+        victims = sorted(set(tags) - set(keepers))
+        mark("submitted")
+
+        # 2. the craneds register; then real-time cycles for NP_RUN_S,
+        # sampled NP_SAMPLES times
+        t0 = time.perf_counter()
+        for name, cpu, mem, part in chosen + gang_nodes:
+            craneds[name] = CranedProc(tmp, name, port, cpu, mem, part)
+        wait_until(lambda: set(craneds) <= alive(), "every craned registers",
+                   pause=0.5)
+        out["register_s"] = time.perf_counter() - t0
+        t_cycles = time.time()
+        mark("registered")
+        check(alive() == set(craneds),
+              f"{label}: alive nodes other than the craneds")
+        print(f"[{label}] {len(ids)} submits in {dt:.1f}s; {len(craneds)} "
+              f"craneds registered in {out['register_s']:.1f}s (banner "
+              f"{out['boot_to_banner_s']:.1f}s); host cgroup "
+              f"{json.dumps(out['host_cgroup'])}; gang nodes {gang_names}",
+              flush=True)
+        totals = {n.name: (n.cpu_total, n.mem_total)
+                  for n in client.query_cluster().nodes}
+        res_of = {jid: specs[i].res for i, jid in enumerate(ids)}
+        res_of.update((jid, pb.ResourceSpec(cpu=1.0, mem_bytes=1 << 30))
+                      for jid in tags)
+        spec_of = {jid: i for i, jid in enumerate(ids)}
+        out["submit"] = {"jobs": len(ids), "seconds": dt,
+                         "jobs_per_s": len(ids) / dt}
+        samples = []
+
+        def finished(jobs):
+            return [j for j in jobs.values() if j.job_id in spec_of
+                    and j.status in ("Completed", "Failed")]
+
+        def sample():
+            jobs = stream_jobs(client)
+            live = alive()
+            use = {}
+            for j in jobs.values():
+                if j.status != "Running":
+                    continue
+                res = res_of[j.job_id]
+                for n in j.node_names:
+                    c, m = use.get(n, (0.0, 0))
+                    use[n] = (c + res.cpu, m + res.mem_bytes)
+            over = [n for n, (c, m) in use.items() if n in live and (
+                c > totals[n][0] + 1e-6 or m > totals[n][1])]
+            check(not over, f"{label}: oversubscribed {over[:5]}")
+            samples.append({"t": time.time() - t_cycles,
+                            "running": sum(1 for j in jobs.values()
+                                           if j.status == "Running"),
+                            "finished": len(finished(jobs)),
+                            "busiest_cpu_share": max(
+                                (c / totals[n][0] for n, (c, _) in
+                                 use.items()), default=0.0)})
+            rows_now()
+            return jobs
+
+        for k in range(1, NP_SAMPLES + 1):
+            time.sleep(max(0.0, t_cycles + k * NP_RUN_S / NP_SAMPLES
+                           - time.time()))
+            jobs = sample()
+        t_run = time.time()
+        mark("window")
+        done = finished(jobs)
+        check(done, f"{label}: no job finished in {NP_RUN_S:.0f}s")
+        out["samples"] = samples
+        out["finished"] = len(done)
+        # every craned registered at t_cycles: the steps that ended in the
+        # window, and the rate between the first sample and the last
+        # (past the first cold cycles)
+        out["window_s"] = t_run - t_cycles
+        out["steps_per_s"] = sum(1 for j in done if j.end_time >= t_cycles
+                                 ) / out["window_s"]
+        first, last = samples[0], samples[-1]
+        out["steps_per_s_after_first_sample"] = (
+            (last["finished"] - first["finished"]) / (last["t"] - first["t"]))
+        bad_out, bad_exit = [], []
+        for j in done:
+            want = ("Failed", 3) if fails[spec_of[j.job_id]] else (
+                "Completed", 0)
+            if (j.status, j.exit_code) != want:
+                bad_exit.append((j.job_id, j.status, j.exit_code))
+            if j.status == "Completed":
+                # one line per node and run: a requeued job's earlier
+                # runs come first, the recorded nodes' lines last
+                lines = _output_lines(tmp, j.job_id)
+                last = lines[len(lines) - len(j.node_names):]
+                if (sorted(ln[1] for ln in last) != sorted(j.node_names)
+                        or any(ln[0] != str(j.job_id) for ln in lines)
+                        or (j.requeue_count == 0
+                            and len(lines) != len(j.node_names))):
+                    bad_out.append((j.job_id, j.requeue_count,
+                                    list(j.node_names), lines))
+        check(not bad_exit, f"{label}: exit codes {bad_exit[:5]}")
+        check(not bad_out, f"{label}: outputs {bad_out[:3]}")
+        out["exit3_jobs"] = sum(1 for j in done if j.status == "Failed")
+        out["finished_requeued"] = sum(1 for j in done if j.requeue_count)
+        print(f"[{label}] {len(done)} jobs finished, "
+              f"{out['steps_per_s']:.2f}/s over the {out['window_s']:.1f}s "
+              f"window ({out['steps_per_s_after_first_sample']:.2f}/s after "
+              f"its first sample), {out['exit3_jobs']} with exit 3; "
+              f"samples {json.dumps(samples)}", flush=True)
+
+
+        def job_report(jids):
+            jobs = {j.job_id: j for j in client.query_jobs(
+                job_ids=list(jids), include_history=True).jobs}
+            rep = []
+            for jid in jids:
+                lines = _output_lines(tmp, jid)
+                j = jobs.get(jid)
+                rep.append((jid, j and j.status, j and j.requeue_count,
+                            j and list(j.node_names), lines,
+                            _cmdline(int(lines[-1][2])) if lines else b""))
+            return rep
+
+        def running_shells(jids, what):
+            """Each job's shell PID once every one runs: its output's
+            last line (a requeued job appends one per run) names a live
+            shell with the job's tag."""
+            got = {}
+
+            def ready():
+                got.clear()
+                for jid in jids:
+                    lines = _output_lines(tmp, jid)
+                    pid = int(lines[-1][2]) if lines else 0
+                    if not _proc_tagged(pid, tags[jid]):
+                        return False
+                    got[jid] = pid
+                return True
+
+            wait_until(ready, lambda: f"{what}: {job_report(jids)}")
+            return dict(got)
+
+        # node-downs before the SIGKILL below (a craned whose pings the
+        # ctld missed for CranedTimeoutSec; its jobs were requeued)
+        def node_downs():
+            return [(e.node, round(e.time - t_cycles, 3)) for e in
+                    client.query_events(type="node_down").events]
+
+        # 3. cancel the ten sleepers
+        victims = running_shells(victims, "the jobs to cancel run")
+        for jid in victims:
+            check(client.cancel(jid).ok, f"{label}: cancel {jid}")
+
+        def statuses():
+            return {j.job_id: j.status for j in client.query_jobs(
+                job_ids=list(victims), include_history=True).jobs}
+
+        wait_until(lambda: set(statuses().values()) == {"Cancelled"},
+                   lambda: f"the cancels ({statuses()})")
+        wait_until(lambda: not any(
+            _proc_tagged(pid, tags[jid]) for jid, pid in victims.items()),
+            "the cancelled shells exit")
+        out["cancelled"] = sorted(victims)
+        mark("cancelled")
+
+        # 4. SIGKILL the keepers' craned while they run there
+        name = gang_names[1]
+        running_shells(keepers, "the keepers run")
+        held = {j.job_id: j.requeue_count for j in client.query_jobs(
+            job_ids=keepers).jobs}
+        out["node_downs_before_kill"] = node_downs()
+        t_kill = time.time()
+        craneds[name].proc.kill()
+        craneds[name].proc.wait(timeout=60)
+
+        def down():
+            return any(n.name == name and n.state == "DOWN"
+                       for n in client.query_cluster().nodes)
+
+        wait_until(down, f"node {name} down", pause=NP_POLL_S)
+        out["kill_to_down_s"] = time.time() - t_kill
+        mark("killed_node_down")
+        jobs = {j.job_id: j for j in client.query_jobs(
+            job_ids=keepers, include_history=True).jobs}
+        stuck = [jid for jid, inc in held.items()
+                 if jobs[jid].status == "Running"
+                 and name in jobs[jid].node_names
+                 and jobs[jid].requeue_count == inc]
+        requeued = [jid for jid, inc in held.items()
+                    if jobs[jid].requeue_count > inc]
+        check(not stuck and sorted(requeued) == sorted(keepers),
+              f"{label}: the jobs running on {name} after its SIGKILL: "
+              f"{[(j, jobs[j].status, jobs[j].requeue_count) for j in held]}")
+        t_restart = time.time()
+        craneds[name].start()
+        wait_until(lambda: name in alive(), f"{name} alive again",
+                   pause=NP_POLL_S)
+        mark("alive_again")
+        out["killed"] = {"node": name, "running": len(held),
+                         "requeued": len(requeued),
+                         "restart_to_alive_s": time.time() - t_restart}
+        print(f"[{label}] node-downs before the SIGKILL "
+              f"{out['node_downs_before_kill']}; {out['finished_requeued']} "
+              f"finished jobs were requeued once or more", flush=True)
+        print(f"[{label}] cancelled {NP_CANCEL} (shells gone); SIGKILL "
+              f"{name}: down in {out['kill_to_down_s']:.1f}s, "
+              f"{len(requeued)} of {len(held)} requeued, alive again in "
+              f"{out['killed']['restart_to_alive_s']:.1f}s", flush=True)
+
+        # 5. a 2-node gang fencing through coord on the resolvable pair
+        script = (f"exec > {tmp}/gang_$CRANE_NODE_RANK.log 2>&1\n"
+                  f"{sys.executable} -m cranesched_tpu_torch.coord fence "
+                  "ready --data r$CRANE_NODE_RANK --timeout 60 || exit 9\n"
+                  "echo fenced-$CRANE_NODE_RANK\n")
+        gid = client.submit(pb.JobSpec(
+            partition="gang", node_num=2, time_limit=600, script=script,
+            res=pb.ResourceSpec(cpu=1.0, mem_bytes=1 << 30))).job_id
+        t_gang = time.time()
+
+        def gang_state():
+            return client.query_jobs(job_ids=[gid],
+                                     include_history=True).jobs[0]
+
+        wait_until(lambda: gang_state().status in (
+            "Completed", "Failed", "Cancelled"), "the gang ends")
+        logs = {}
+        for r in (0, 1):
+            path = f"{tmp}/gang_{r}.log"
+            logs[r] = open(path).read() if os.path.exists(path) else ""
+        g = gang_state()
+        check(g.status == "Completed" and all(
+            f"fenced-{r}" in logs[r] and "0:r0" in logs[r]
+            and "1:r1" in logs[r] for r in (0, 1)),
+            f"{label}: gang {g.status} {g.exit_code} {logs}")
+        out["gang"] = {"job": gid, "nodes": list(g.node_names),
+                       "seconds": time.time() - t_gang}
+        mark("gang")
+
+        # node-side spans of the window's latest finished jobs, read once
+        # the gang is done (the reads stretch the cycle they overlap; the
+        # job trace keeps every job's timeline: each must hold them).
+        # ``dispatched`` is the cycle's ``now``, its start;
+        # ``craned_received`` is the push's ``now``, stamped as the
+        # dispatcher sends it (the craned re-bases its spans onto it); the
+        # cycle's trace row gives its state phases' end (``now`` +
+        # ``total_ms``), where the dispatch phase hands the pushes to the
+        # dispatcher's pool
+        import concurrent.futures
+
+        rows_now()
+        by_now = {r["now"]: r for r in trace_rows.values()}
+        latest = sorted(done, key=lambda j: -j.end_time)[:NP_TRACE_JOBS]
+        with concurrent.futures.ThreadPoolExecutor(NP_TRACE_THREADS) as ex:
+            docs = list(ex.map(lambda j: client.query_job_summary(
+                job_id=j.job_id).timeline_json, latest))
+        cycle_push, drain_push, start, missing = [], [], [], []
+        for j, doc in zip(latest, docs):
+            t = ({sp["edge"]: sp["t"] for sp in
+                  json.loads(doc)["incarnations"][-1]["spans"]}
+                 if doc else {})
+            if not {"dispatched", "craned_received", "step_start"} <= set(t):
+                missing.append((j.job_id, sorted(t)))
+                continue
+            cycle_push.append(t["craned_received"] - t["dispatched"])
+            start.append(t["step_start"] - t["craned_received"])
+            row = by_now.get(t["dispatched"])
+            if row is not None:
+                drain_push.append(t["craned_received"] - t["dispatched"]
+                                  - row["total_ms"] / 1e3)
+        check(not missing, f"{label}: {len(missing)} of {len(latest)} "
+                           f"jobs lack node-side spans: {missing[:5]}")
+        out["cycle_start_to_push_sent"] = percentiles(cycle_push)
+        out["drain_to_push_sent"] = (percentiles(drain_push)
+                                     if drain_push else None)
+        out["craned_received_to_step_start"] = percentiles(start)
+        mark("spans")
+
+        # the ctld's cycles: on the card, through greedy_place
+        rows_now()
+        trace = [trace_rows[k] for k in sorted(trace_rows)
+                 if trace_rows[k].get("solver") != "skip"]
+        out["skipped_cycles"] = len(trace_rows) - len(trace)
+        out["cycles"] = [{k: r.get(k) for k in (
+            "now", "solver", "device", "kernel_launches", "candidates",
+            "placed", "total_ms", "solve_ms", "solve_head_ms",
+            "solve_tail_ms", "commit_ms", "dispatch_ms")} for r in trace]
+        check(trace and all(r["device"] == DEVICE for r in trace),
+              f"{label}: cycle devices {[r['device'] for r in trace]}")
+        want = {"backfill-split": 1, "cuda-stream": 1, "cuda": 1,
+                "backfill": 0}
+        check(DEVICE != "cuda" or all(
+            r["solver"] in want and r["kernel_launches"]
+            == want[r["solver"]] for r in trace),
+            f"{label}: cycle solvers and launches "
+            f"{[(r['solver'], r['kernel_launches']) for r in trace]}")
+        out["launches"] = sum(r["kernel_launches"] for r in trace)
+        check(DEVICE != "cuda" or any(
+            r["kernel_launches"] and r["placed"] for r in trace),
+            f"{label}: greedy_place placed nothing in the ctld")
+        out["head_stretch"] = [r["solve_head_ms"] / base_head_ms
+                               for r in trace
+                               if r["solver"] == "backfill-split"]
+        out["supervisor_spawn"] = spawn_histogram(
+            [c.metrics() for c in craneds.values()])
+        client.close()
+
+        mark("read")
+
+        # 6. SIGTERM every craned (all at once), then the ctld
+        for c in craneds.values():
+            c.term()
+        rcs = {n: c.wait() for n, c in craneds.items()}
+        check(all(rc == 0 for rc in rcs.values()),
+              f"{label}: craned exits {rcs}")
+        mark("craneds_stopped")
+        out["stop_s"] = ctld.stop()
+        mark("ctld_stopped")
+        out["timeline_s"] = marks
+        errs = "".join(c.text("err") for c in craneds.values())
+        for c in craneds.values():
+            for run in range(1, c.runs):
+                with open(f"{tmp}/craned-{c.name}-{run}.err") as fh:
+                    errs += fh.read()
+        out["rendezvous_bind_failed"] = errs.count("rendezvous bind failed")
+        print(f"[{label}] cycles {json.dumps(out['cycles'])}", flush=True)
+        print(f"[{label}] gang on {out['gang']['nodes']} fenced in "
+              f"{out['gang']['seconds']:.1f}s; heads over the in-process "
+              f"head ({base_head_ms:.1f} ms): "
+              f"{[round(x, 2) for x in out['head_stretch']]}; spawn "
+              f"{json.dumps(out['supervisor_spawn'])}; every process "
+              f"exited 0", flush=True)
+    finally:
+        if "launches" not in out and trace_rows:
+            print(f"[{label}] cycles so far: " + json.dumps([
+                [r["now"], r["solver"], r.get("total_ms"),
+                 r.get("solve_head_ms"), r.get("placed"),
+                 r.get("candidates")]
+                for _, r in sorted(trace_rows.items())]), flush=True)
+        for c in craneds.values():
+            c.kill()
+        if ctld is not None:
+            ctld.kill()
+        # what the craneds leave when they die (supervisors, scripts)
+        out["processes_stopped_after"] = stop_marked()
+    return out, out["launches"]
+
+
 def main() -> int:
     try:
         return run()
     finally:
         if _pool is not None:
             _pool.shutdown(wait=True, cancel_futures=True)
+            # the pool's resource tracker would otherwise end after this
+            # process, with no parent left to reap it
+            from multiprocessing import resource_tracker
+
+            resource_tracker._resource_tracker._stop()
+        left = stop_marked()
+        if left:
+            print(f"[exit] stopped {len(left)} processes this run left: "
+                  f"{left[:20]}", file=sys.stderr, flush=True)
 
 
 def run() -> int:
@@ -3060,6 +3816,7 @@ def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    mark_processes()
     from cranesched_tpu_torch.kernels import build
     from cranesched_tpu_torch.tools import kattr
 
@@ -3147,7 +3904,6 @@ def run() -> int:
     # against an in-process twin, then the daemon with a restart
     controller, rpc_paths = timed("controller", phase_controller)
     paths.update(rpc_paths)
-    launches = sum(paths.values())
 
     # 13. the CPU checks the phases left to the worker processes
     t0 = time.perf_counter()
@@ -3155,6 +3911,15 @@ def run() -> int:
     print(f"[cpu-checks] all {len(results)} passed in {CPU_WORKERS} worker "
           f"processes: {sorted(results)}; waited "
           f"{time.perf_counter() - t0:.1f}s after the last phase", flush=True)
+    if _pool is not None:
+        _pool.shutdown(wait=True)
+
+    # 14. the real node plane, once the workers are gone: its craneds,
+    # supervisors and jobs are real processes on this host
+    node_plane, paths["node_plane_cycles"] = timed(
+        "node-plane", phase_node_plane,
+        controller["service"]["ticks"][-1]["solve_head_ms"])
+    launches = sum(paths.values())
     for r in (kres["stream"], kres["serial"]):
         r["max_abs_err"], r["plain_s"] = results[r["check"]]
     topo_err = results["topo-single permuted tail"]
@@ -3221,6 +3986,7 @@ def run() -> int:
     print(json.dumps({"obs": obs}), flush=True)
     print(json.dumps({"native": native_rep}), flush=True)
     print(json.dumps({"controller": controller}), flush=True)
+    print(json.dumps({"node_plane": node_plane}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

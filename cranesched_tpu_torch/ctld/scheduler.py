@@ -53,9 +53,9 @@ SLOs, the flight recorder, the ``torch.profiler`` capture window and
 
 Semantics are the JAX package's, bit for bit.  What the port does not
 carry yet raises ``NotImplementedError`` naming its ROADMAP item: the
-sharded solver (A10) and the real node plane's dispatch pool (A9b).  HA
-replication (A13) and federation (A14) are left out: ``fed`` and
-``global_usage`` stay None, as on a single JAX controller.
+sharded solver (A10).  HA replication (A13) and federation (A14) are
+left out: ``fed`` and ``global_usage`` stay None, as on a single JAX
+controller.
 
 The cycle is an explicit ``schedule_cycle(now)`` call with virtual time;
 ``cycle_phases`` exposes it as a generator whose yielded closures (the
@@ -268,8 +268,9 @@ class SchedulerConfig:
     # kernel; "device" the plain solve_greedy on the scheduler's device.
     # All are bit-identical on placements.  "sharded" is ROADMAP A10.
     solver: str = "cuda"
-    # the real node plane's post-commit dispatch fan-out width
-    # (ROADMAP A9b)
+    # post-commit dispatch fan-out width (YAML ``DispatchWorkers``).
+    # None sizes the dispatcher pool from the cluster:
+    # max(8, nodes // 64), capped at 128 (rpc/dispatcher.py)
     dispatch_workers: int | None = None
     # incremental cycle state: the PendingTable candidate pass, delta
     # meta snapshots and the no-op-cycle fingerprint.  False rebuilds
@@ -305,9 +306,6 @@ class SchedulerConfig:
         if self.solver not in SOLVERS:
             raise ValueError(f"solver must be one of {'|'.join(SOLVERS)}, "
                              f"got {self.solver!r}")
-        if self.dispatch_workers is not None:
-            raise _not_ported("dispatch_workers (the real node plane's "
-                              "dispatch pool)", "A9b")
         if self.priority_type not in ("multifactor", "basic"):
             raise ValueError(f"priority_type must be multifactor|basic, "
                              f"got {self.priority_type!r}")
@@ -499,6 +497,10 @@ class JobScheduler:
         self.meta = meta
         self.config = config = config or SchedulerConfig()
         self.dispatch = dispatch or (lambda job, nodes: None)
+        # optional batched dispatch seam (GrpcDispatcher.wire sets it):
+        # one call for the whole post-commit ring with per-craned
+        # coalescing; None falls back to per-job self.dispatch
+        self.dispatch_batch = None
         self.wal = wal
         # HA fencing term stamped on dispatch ring entries; 0 until HA
         # is in the port
@@ -2110,8 +2112,11 @@ class JobScheduler:
                 trace.stamp(job.job_id, inc, "dispatched", t,
                             epoch=epoch)
         self.flight.stamp("dispatch", detail=str(len(items)))
-        for job, node_ids, *_ in items:
-            self.dispatch(job, node_ids)
+        if self.dispatch_batch is not None:
+            self.dispatch_batch(items)
+        else:
+            for job, node_ids, *_ in items:
+                self.dispatch(job, node_ids)
         return len(items)
 
     def _dispatch_phase(self):

@@ -5,6 +5,7 @@ Mirrors the reference's CraneCtld bootstrap (reference:
 src/CraneCtld/CraneCtld.cpp:1019-1279 — config parse, global init in
 dependency order, recovery from the embedded DB, then serve):
 
+    python -m cranesched_tpu_torch.ctld_main -c etc/config.yaml
     python -m cranesched_tpu_torch.ctld_main -c etc/config.yaml --sim
     python -m cranesched_tpu_torch.ctld_main -c etc/config.yaml --sim \\
         --device cpu
@@ -14,11 +15,14 @@ acquired first within a time budget (``CRANE_ACQUIRE_TIMEOUT``); if the
 card cannot be acquired the daemon exits non-zero with the diagnosis and
 never carries on on the CPU.  ``--device cpu`` runs it on the CPU.
 
-``--sim`` attaches the in-process simulated node plane (every configured
+Without ``--sim`` the ctld drives the real node plane: ``craned_main``
+processes register over gRPC (``CranedRegister``), and the dispatcher
+(``rpc/dispatcher.py``) pushes each placement to them.  ``--sim``
+attaches the in-process simulated node plane instead (every configured
 node is immediately alive and runs jobs on the virtual completion
 queue).  What the port does not carry yet is refused by its ROADMAP.md
-item: the real node plane (no ``--sim``; A9b), a hot standby
-(``--ha-standby``; A13) and a ``Federation:`` block (A14).
+item: a hot standby (``--ha-standby``; A13) and a ``Federation:`` block
+(A14).
 
 The first stdout line is the ``listening on port N`` banner: wrappers
 parse the bound port out of it.
@@ -73,8 +77,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.ha_standby:
         return _refuse("a hot standby (--ha-standby)", "A13")
-    if not args.sim:
-        return _refuse("the real node plane (run with --sim)", "A9b")
 
     # bounded acquisition of the card BEFORE the first cycle can touch
     # it under the RPC lock; the event goes out first, then the daemon
@@ -95,6 +97,7 @@ def main(argv=None) -> int:
 
     from cranesched_tpu_torch.craned.sim import SimCluster
     from cranesched_tpu_torch.ctld.wal import WriteAheadLog
+    from cranesched_tpu_torch.rpc.dispatcher import GrpcDispatcher
     from cranesched_tpu_torch.rpc.server import serve
     from cranesched_tpu_torch.utils.config import load_config
 
@@ -139,8 +142,9 @@ def main(argv=None) -> int:
                   file=sys.stderr, flush=True)
             return 1
         scheduler.fencing_epoch = epoch
-        for node in meta.nodes.values():
-            node.alive = True
+        if args.sim:
+            for node in meta.nodes.values():
+                node.alive = True
         count, snap_seq = recover_from_snapshot(
             scheduler, WriteAheadLog, cfg.wal_path, now=time.time())
         # stderr: the first STDOUT line stays the "listening on port"
@@ -154,11 +158,18 @@ def main(argv=None) -> int:
         print(f"leader lease acquired (fencing epoch {epoch})",
               file=sys.stderr, flush=True)
 
-    for node in meta.nodes.values():
-        node.alive = True
-    sim = SimCluster(scheduler)
-    sim.wire(scheduler)
+    sim = None
+    dispatcher = None
     tls = cfg.tls_config()
+    if args.sim:
+        for node in meta.nodes.values():
+            node.alive = True
+        sim = SimCluster(scheduler)
+        sim.wire(scheduler)
+    else:
+        dispatcher = GrpcDispatcher(
+            scheduler, tls=tls.for_client() if tls else None)
+        dispatcher.wire(scheduler)
 
     if cfg.node_event_hook_path:
         from cranesched_tpu_torch.utils.config import (
@@ -182,10 +193,12 @@ def main(argv=None) -> int:
                     else cfg.metrics_port)
     address = args.listen or cfg.listen
     server, port = serve(scheduler, sim=sim, address=address,
-                         cycle_interval=args.cycle_interval, auth=auth,
-                         tls=tls, metrics_port=metrics_port)
+                         cycle_interval=args.cycle_interval,
+                         dispatcher=dispatcher, auth=auth, tls=tls,
+                         metrics_port=metrics_port)
     print(f"cranectld [{cfg.cluster_name}] listening on port {port} "
-          f"(simulated node plane, {len(meta.nodes)} nodes configured, "
+          f"({'simulated' if args.sim else 'real'} node plane, "
+          f"{len(meta.nodes)} nodes configured, "
           f"device {scheduler.device}"
           f"{', TLS' if tls else ''})", flush=True)
     if server.metrics_port is not None:

@@ -30,22 +30,15 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from cranesched_tpu_torch.utils.gres import (  # noqa: F401
+    gres_key_pair,
+    gres_key_str,
+)
+
 # Fixed-point scale for cpu counts: 8 fractional bits.
 CPU_SCALE = 256
 # Memory unit for device tensors.
 MEM_UNIT_BYTES = 1 << 20  # 1 MiB
-
-
-def gres_key_str(pair) -> str:
-    """Canonical wire form of a GRES (name, type) pair: "name:type"."""
-    name, typ = pair
-    return f"{name}:{typ}"
-
-
-def gres_key_pair(key: str) -> tuple:
-    """Inverse of gres_key_str."""
-    name, _, typ = key.partition(":")
-    return (name, typ)
 
 
 DIM_CPU = 0

@@ -23,7 +23,9 @@ Two clock modes:
 
 This is the single controller.  The federation RPCs abort
 ``UNIMPLEMENTED`` naming ROADMAP.md A14, the HA replication RPCs naming
-A13, and a real node plane (``dispatcher=``) raises naming A9b.
+A13.  A real node plane passes ``dispatcher=`` (``rpc/dispatcher.py``):
+``CranedRegister`` opens its push channel to the craned, and ``stop()``
+closes it.
 """
 
 from __future__ import annotations
@@ -86,12 +88,13 @@ class CtldServer:
                  dispatcher=None, auth=None, tls=None,
                  metrics_port: int | None = None,
                  standby: bool = False):
-        if dispatcher is not None:
-            raise _not_ported("the real node plane (dispatcher=)", "A9b")
         if standby:
             raise _not_ported("a hot standby (standby=True)", "A13")
         self.scheduler = scheduler
         self.sim = sim
+        # real node plane: per-node push stubs (wired into the
+        # scheduler's dispatch seam by the caller)
+        self.dispatcher = dispatcher
         # AuthManager (ctld/auth.py) or None = open system (the
         # reference's equivalent seam is CheckCertAndUIDAllowed_ on
         # every external RPC, CtldGrpcServer.h:568)
@@ -835,6 +838,9 @@ class CtldServer:
                 node.address = request.address
                 node.expect_pings = True
                 node.last_ping = self._now()
+                if self.dispatcher is not None:
+                    self.dispatcher.node_registered(node.node_id,
+                                                    request.address)
             # keep the simulated plane in sync so dispatch to the new
             # node has a craned to land on
             elif self.sim is not None and node.node_id not in \
@@ -1216,6 +1222,8 @@ class CtldServer:
         if self._cycle_thread is not None:
             self._cycle_thread.join(timeout=self.STOP_JOIN_S)
         self.scheduler.flight.close()
+        if self.dispatcher is not None:
+            self.dispatcher.close()
         if self._metrics_server is not None:
             self._metrics_server.shutdown()
             self._metrics_server = None

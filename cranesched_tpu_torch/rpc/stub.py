@@ -30,9 +30,11 @@ class GrpcStub:
         self._stubs = {}
 
     def call(self, name, request, reply_cls, timeout: float | None = None,
-             metadata=()):
+             metadata=(), wait_for_ready: bool = False):
         """``metadata``: extra (key, value) pairs appended after the
-        auth token — e.g. the dispatcher's crane-trace context."""
+        auth token — e.g. the dispatcher's crane-trace context.
+        ``wait_for_ready``: wait within the deadline for a peer that is
+        not listening yet instead of failing at once (UNAVAILABLE)."""
         stub = self._stubs.get(name)
         if stub is None:
             stub = self._channel.unary_unary(
@@ -43,7 +45,7 @@ class GrpcStub:
         md = (((self.token_key, self.token),) if self.token else ())
         md = md + tuple(metadata)
         return stub(request, timeout=timeout or self.timeout,
-                    metadata=md or None)
+                    metadata=md or None, wait_for_ready=wait_for_ready)
 
     # server streams drain large result sets across many scheduler
     # cycles — the unary timeout (30 s) would abort them mid-stream

@@ -10,8 +10,8 @@ issued bearer tokens in gRPC metadata, owner-or-admin on job mutations,
 authenticated accounting actor, a cluster secret for the craned-internal
 surface, and TLS anchored in a cluster CA with optional mTLS.  The TLS
 cases need the ``cryptography`` package (skipped one by one without it);
-the JAX file's real-node-plane TLS case comes with the node plane
-(ROADMAP.md A9b).
+the JAX file's real-node-plane TLS case runs in
+``test_torch_craned_features.py``.
 """
 
 import grpc

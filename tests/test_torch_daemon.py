@@ -2,8 +2,9 @@
 as a subprocess on the CPU (``--device cpu``): the banner, submits over
 the wire, SIGTERM with exit 0, a restart from the WAL (and its snapshot)
 that keeps every acknowledged job in the state the last query showed,
-the held lease's refusal, the refusals naming ROADMAP.md A9b, A13 and
-A14, and the boot path's bounded acquisition of the card, which never
+the held lease's refusal, the refusals naming ROADMAP.md A13 and A14,
+the real node plane (no ``--sim``: a ``craned_main`` subprocess registers
+and runs jobs as real processes), and the boot path's bounded acquisition of the card, which never
 carries on on the CPU when it fails (tested with a stubbed probe).  In
 process: the snapshot document against the JAX package's, and the
 lease's exclusion and epoch.
@@ -165,19 +166,101 @@ def test_submit_sigterm_restart_keeps_every_acked_job(tmp_path):
 
 
 @pytest.mark.parametrize("args,extra,item", [
-    (("--device", "cpu"), "", "A9b"),
-    (("--sim", "--device", "cpu"), "  DispatchWorkers: 16\n", "A9b"),
+    (("--device", "cpu"), "", None),
+    (("--device", "cpu"), "  DispatchWorkers: 16\n", None),
     (("--sim", "--ha-standby", "--device", "cpu"), "", "A13"),
     (("--sim", "--device", "cpu"),
      "Federation:\n  ShardName: s0\n", "A14"),
 ], ids=["real-node-plane", "dispatch-workers", "standby", "federation"])
 def test_unported_features_refused_by_item(tmp_path, args, extra, item):
+    """What the port does not carry is refused naming its ROADMAP item;
+    what came since (item None: the real node plane and its dispatch
+    pool) starts with its banner and stops with 0 on SIGTERM."""
     d = Daemon(tmp_path, "d", "-c", _config(tmp_path, extra), *args)
     try:
+        if item is None:
+            d.port()
+            assert "(real node plane, 4 nodes configured" in d.stdout()
+            os.kill(d.proc.pid, signal.SIGTERM)
+            assert d.wait() == 0
+            return
         assert d.wait() != 0
         assert f"ROADMAP.md {item}" in d.stderr()
         assert not BANNER.search(d.stdout())
     finally:
+        d.kill()
+
+
+class Craned:
+    """One craned_main subprocess, its output in files under ``tmp``."""
+
+    def __init__(self, tmp_path, name, ctld_port, *args):
+        self.out = tmp_path / f"{name}.out"
+        self.err = tmp_path / f"{name}.err"
+        with open(self.out, "w") as out, open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "cranesched_tpu_torch.craned_main",
+                 "--name", name, "--ctld", f"127.0.0.1:{ctld_port}",
+                 "--workdir", str(tmp_path),
+                 "--cgroup-root", str(tmp_path / "nocgroup"), *args],
+                cwd=REPO, stdout=out, stderr=err)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            os.kill(self.proc.pid, signal.SIGKILL)
+            self.proc.wait(timeout=30)
+
+
+def test_real_node_plane_runs_a_job_to_completed(tmp_path):
+    """``ctld_main`` without ``--sim`` on the CPU and one ``craned_main``
+    subprocess: the craned registers, a job runs on it as a real
+    process to COMPLETED with its output file, a failing one reports its
+    exit code, and both daemons stop with 0 on SIGTERM."""
+    d = Daemon(tmp_path, "ctld", "-c", _config(tmp_path), "--device",
+               "cpu", "--cycle-interval", "0.1")
+    craned = None
+    try:
+        port = d.port()
+        assert "(real node plane, 4 nodes configured" in d.stdout()
+        client = CtldClient(f"127.0.0.1:{port}", timeout=10.0)
+        craned = Craned(tmp_path, "cn1", port, "--cpu", "8", "--memory",
+                        "16G", "--partitions", "batch",
+                        "--ping-interval", "0.5")
+
+        def alive():
+            nodes = client.query_cluster().nodes
+            return [n.name for n in nodes if n.state != "DOWN"]
+
+        assert _until(lambda: alive() == ["cn1"], timeout=60.0)
+        out = tmp_path / "job_%j.out"
+        ok = client.submit(pb.JobSpec(
+            user="alice", partition="batch", time_limit=600,
+            res=pb.ResourceSpec(cpu=2.0, mem_bytes=1 << 30),
+            script="echo ran-$CRANE_JOB_ID-on-$CRANE_NODE_NAME",
+            output_path=str(out))).job_id
+        bad = client.submit(pb.JobSpec(
+            user="alice", partition="batch", time_limit=600,
+            res=pb.ResourceSpec(cpu=2.0, mem_bytes=1 << 30),
+            script="exit 3")).job_id
+
+        def final(jid):
+            jobs = client.query_jobs(include_history=True).jobs
+            return {j.job_id: j for j in jobs}.get(jid)
+
+        assert _until(lambda: final(ok).status == "Completed"
+                      and final(bad).status == "Failed", timeout=60.0)
+        assert list(final(ok).node_names) == ["cn1"]
+        assert final(bad).exit_code == 3
+        assert (tmp_path / f"job_{ok}.out").read_text() == \
+            f"ran-{ok}-on-cn1\n"
+        client.close()
+        os.kill(craned.proc.pid, signal.SIGTERM)
+        assert craned.proc.wait(timeout=30) == 0
+        os.kill(d.proc.pid, signal.SIGTERM)
+        assert d.wait() == 0
+    finally:
+        if craned is not None:
+            craned.kill()
         d.kill()
 
 

@@ -3,7 +3,7 @@ refuse loudly what the port does not carry yet.
 
 Here there is no CUDA device, so every entry point given no ``device``
 must raise; with ``device="cpu"`` it runs.  Out-of-slice configuration
-(the sharded solver, the server loop's knobs) raises
+(the sharded solver) raises
 ``NotImplementedError`` naming its ROADMAP item instead of being
 accepted or rejected as invalid; what the port carries (every other
 field of the JAX package's ``SchedulerConfig``, packed and
@@ -64,14 +64,14 @@ def test_entry_points_raise_without_cuda():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(backfill=False, solver="sharded"), "A10"),
-    (dict(dispatch_workers=8), "A9b"),
+    (dict(dispatch_workers=8), None),
     (dict(cycle_idle_sleep=5.0), None),
 ])
 def test_unsupported_config_raises(kw, item):
-    """The sharded solver and the real node plane's dispatch pool are
-    refused by their ROADMAP item; the server loop's idle sleep is live
-    since the server is in the port (item None: accepted as given); an
-    unknown solver name is invalid."""
+    """The sharded solver is refused by its ROADMAP item; the real node
+    plane's dispatch pool and the server loop's idle sleep are live since
+    the dispatcher and the server are in the port (item None: accepted as
+    given); an unknown solver name is invalid."""
     if item is None:
         cfg = SchedulerConfig(**kw)
         assert all(getattr(cfg, k) == v for k, v in kw.items())

@@ -10,6 +10,9 @@ packed job, a dependency, an array, a WAL and the job trace, recovers a
 second scheduler from that WAL, runs a cycle with the native solver
 under a profiler capture, and serves ``etc/config.yaml``'s cluster over
 gRPC (the daemon's modules: config, lease, snapshot, server and client).
+The node plane (the craned, its supervisor, ``craned_main``, ``coord``,
+the rendezvous service) also imports with ``torch`` blocked, so a craned
+and every step's supervisor start without loading it.
 ``chip_smoke.py`` and every source of the port are checked by an AST
 scan of their imports, and the port's ``crane_pb2`` is the JAX
 package's byte for byte.
@@ -169,13 +172,64 @@ def test_port_imports_without_jax_and_runs_a_cycle():
                 "rpc.client", "rpc.server", "utils.logging",
                 "utils.filelock", "utils.pki", "utils.config",
                 "ctld.auth", "ha", "ha.lease", "ha.snapshot",
-                "parallel", "parallel.acquire", "ctld_main"):
+                "parallel", "parallel.acquire", "ctld_main",
+                "rpc.dispatcher", "rpc.rendezvous", "rpc.cfored",
+                "craned.daemon", "craned.supervisor", "craned.cgroup",
+                "craned_main", "coord", "utils.gres"):
         assert f"cranesched_tpu_torch.{mod}" in mods, mod
     code = _CHILD.format(blocked=BLOCKED, mods=mods)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.startswith("OK")
+
+
+NODE_PLANE = ("craned.daemon", "craned.supervisor", "craned.cgroup",
+              "craned_main", "coord", "rpc.rendezvous", "rpc.cfored",
+              "utils.gres")
+
+_NODE_CHILD = textwrap.dedent("""
+    import importlib, sys
+
+    BLOCKED = {blocked!r}
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked import: " + name)
+            return None
+
+    for name in list(sys.modules):
+        if name.split(".")[0] in BLOCKED:
+            del sys.modules[name]
+    sys.meta_path.insert(0, Refuse())
+    for mod in {mods!r}:
+        importlib.import_module("cranesched_tpu_torch." + mod)
+    from cranesched_tpu_torch.craned.daemon import CranedDaemon
+    from cranesched_tpu_torch.craned_main import _parse_gres
+    assert _parse_gres("gpu:a100:2,fpga::1") == dict(
+        [("gpu:a100", 2), ("fpga:", 1)])
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("OK")
+""")
+
+
+def test_node_plane_imports_without_torch():
+    """A craned and each step's supervisor must not load torch (~1.5 s
+    and a few hundred MB a process, on hosts that run many of them):
+    the node plane's modules import with torch and the JAX package
+    blocked."""
+    code = _NODE_CHILD.format(blocked=BLOCKED + ("torch",),
+                              mods=NODE_PLANE)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.startswith("OK")
+    from cranesched_tpu_torch.ops import resources
+    from cranesched_tpu_torch.utils import gres
+    assert resources.gres_key_pair is gres.gres_key_pair
+    assert resources.gres_key_str is gres.gres_key_str
 
 
 def _imported_roots(path):

@@ -17,7 +17,9 @@
 - *The WAL of a batch submit*: the JAX server's records byte for byte,
   one group (one fsync) per 32-spec chunk.
 - *Refusals*: the federation RPCs (ROADMAP.md A14), the HA replication
-  RPCs and a standby (A13), and a real node plane (A9b).
+  RPCs and a standby (A13).  A real node plane (``dispatcher=``) is
+  accepted, registered craneds get push channels, and ``stop()`` closes
+  it.
 """
 
 import json
@@ -721,10 +723,27 @@ def test_unported_rpcs_abort_naming_their_item(ctld, method, args, item):
 
 
 def test_real_node_plane_and_standby_refused():
+    """The real node plane is in the port: ``dispatcher=`` is accepted,
+    a craned's registration opens its push channel and ``stop()`` closes
+    the dispatcher.  A standby is still refused (A13)."""
+    from cranesched_tpu_torch.rpc.dispatcher import GrpcDispatcher
+
     meta = MetaContainer()
     sched = JobScheduler(meta, SchedulerConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tserver.CtldServer(sched, dispatcher=object())
+    dispatcher = GrpcDispatcher(sched)
+    dispatcher.wire(sched)
+    server, port = serve(sched, tick_mode=True, dispatcher=dispatcher)
+    client = CtldClient(f"127.0.0.1:{port}")
+    reply = client._call("CranedRegister", pb.CranedRegisterRequest(
+        name="r0", address="127.0.0.1:1", total=pb.ResourceSpec(
+            cpu=4.0, mem_bytes=1 << 30, memsw_bytes=1 << 30)),
+        pb.CranedRegisterReply)
+    assert reply.ok
+    node_id = meta.node_by_name("r0").node_id
+    assert dispatcher._stubs[node_id].address == "127.0.0.1:1"
+    client.close()
+    server.stop()
+    assert dispatcher._pool._shutdown
     with pytest.raises(NotImplementedError, match="A13"):
         tserver.CtldServer(sched, standby=True)
     assert sched.fed is None and sched.global_usage is None
