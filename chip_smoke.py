@@ -153,11 +153,12 @@ Phases (any failure exits non-zero and prints no result):
    printed beside the cycle's ``total_ms`` and its lock-held share.
    (b) ``python3 -m cranesched_tpu_torch.ctld_main -c <yaml> --sim``
    with no ``--device`` (the card), a WAL and an archive in a temporary
-   directory: the banner, 100,000 specs over the wire (made to run and
-   wait without end), a second daemon on the same WAL refused (the
-   lease is held), at least two cycles with starts and one that places
-   nothing, SIGTERM and exit 0, a restart that shows every acknowledged
-   job as the last query before the stop did; boot-to-banner seconds,
+   directory: the banner, ``DAEMON_JOBS`` (75,000) specs over the wire
+   (made to run and wait without end), a second daemon on the same WAL
+   refused (the lease is held), at least two cycles with starts and one
+   that places nothing, SIGTERM and exit 0, a restart that shows every
+   acknowledged job as the last query before the stop did; boot-to-banner
+   seconds,
    the first cycle's time, and each cycle's ``total_ms``/``solve_ms``;
 13. the CPU checks: every plain version and CPU replay above runs in
    one of ``CPU_WORKERS`` worker processes beside the card's phases;
@@ -188,10 +189,32 @@ Phases (any failure exits non-zero and prints no result):
    node down, the heads' stretch over phase 12's in-process head, the
    dispatcher's pool size, the host's cgroup flavour (read, not built),
    the rendezvous bind failures and when each step ended;
-15. one JSON line each for the cycles, the lifecycle, the obs phase, the
-   native solver, the controller and the node plane, one describing
-   every kernel, then the card line, then the result line ``{"ok":
-   true, "device": {...}}``.
+15. scale-out and failover (seed 2 where it draws): (a) the disjoint
+   cold cycle of 11 (phase 11's seed) with ``solver="sharded"`` on the
+   default mesh (every card) against phase 11's ``"cuda"`` twin,
+   started jobs, nodes, reasons and ledger equal, the greedy kernel not
+   launched, the trace row's ``mesh``; (b) ``SO_JOBS`` x ``N_NODES``
+   through ``solve_greedy_sharded_classes`` on a mesh of ``SO_SHARDS``
+   shards all on the card, and the first ``SO_DENSE_JOBS`` through the
+   dense ``solve_greedy_sharded``, each bitwise against greedy_place on
+   the same batch, and the card's operations a job under
+   ``torch.profiler``; (c) ``SO_RANKS`` processes, one node slab each on
+   the card, fencing once a step through a ``RendezvousServer`` here
+   (``solve_greedy_sharded_classes_mp``) on those first jobs, bitwise
+   against greedy_place, with the p50/p99 of their fences; (d)
+   ``solve_speculative`` and ``solve_blocked`` on the whole batch,
+   bitwise against greedy_place, with their fallbacks and blocks; (e) a
+   failover drill: a leader ``ctld_main --sim`` on the card (phase 12's
+   cluster) and a standby ``--ha-standby --ha-peer`` on the card,
+   ``FO_JOBS`` submits to the leader, the standby caught up, refusing a
+   submit and running no cycle, the leader SIGKILLed, the standby
+   promoted with every acknowledged job (the dead leader's running jobs
+   recovered running, counted apart), ``FO_TOPUP`` new submits
+   acknowledged and scheduled on the card through greedy_place;
+16. one JSON line each for the cycles, the lifecycle, the obs phase, the
+   native solver, the controller, the node plane and the scale-out
+   phase, one describing every kernel, then the card line, then the
+   result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.  The kernel build goes to
 ``build/kernels/`` (see ``cranesched_tpu_torch/kernels/build.py``).
@@ -2540,6 +2563,10 @@ def phase_native(twin):
 
 WIRE_CHUNK = 1_000          # specs per SubmitBatchJobs
 DAEMON_TOPUP = 10_000       # the warm tick's top-up
+# leg (b)'s backlog, cut from 100,000 for the run's time limit (PERF.md
+# §4): above the ~60,000 jobs the cluster holds, so its cycles still
+# saturate it and then place nothing
+DAEMON_JOBS = 75_000
 CANCEL_PENDING, CANCEL_RUNNING = 1_000, 100
 QUERY_REPS = 30             # queries per kind at rest
 PAGES_WALKED = 3            # QueryJobsInfo pages walked from the start
@@ -2992,9 +3019,9 @@ def stream_states(client):
 
 
 def phase_daemon(poll_s=POLL_S):
-    """Leg (b): the daemon on the card (no ``--device``), 100,000 specs
-    over the wire with a second client querying every ``poll_s`` seconds,
-    SIGTERM, a restart from the WAL, and the held lease."""
+    """Leg (b): the daemon on the card (no ``--device``), ``DAEMON_JOBS``
+    specs over the wire with a second client querying every ``poll_s``
+    seconds, SIGTERM, a restart from the WAL, and the held lease."""
     import tempfile
     import threading
 
@@ -3014,7 +3041,7 @@ def phase_daemon(poll_s=POLL_S):
         # they are once placed (no job ends or times out while the phase
         # runs), so the state before the stop is the state a restart
         # must show
-        specs = draw_specs(rng, N_JOBS)
+        specs = draw_specs(rng, DAEMON_JOBS)
         for s in specs:
             s.time_limit, s.sim_runtime = 86400, 1e6
         port, out["boot_to_banner_s"] = first.banner()
@@ -3792,6 +3819,507 @@ def phase_node_plane(base_head_ms):
     return out, out["launches"]
 
 
+# ---------------------------------------------------------------------------
+# 15. scale-out and failover
+# ---------------------------------------------------------------------------
+
+SO_JOBS = 10_000            # (b), (d): the class-table batch
+SO_DENSE_JOBS = 2_000       # (b) dense and (c): its first jobs
+SO_SHARDS = 4               # (b): shards of one mesh, all on the card
+SO_RANKS = 2                # (c): processes, one node slab each
+SO_PROFILE_JOBS = 1_000     # the profiled solves that count launches a job
+FO_JOBS = 20_000            # (e): submits into the leader (cut: PERF.md §4)
+# (e): submits into the promoted controller, in SubmitBatchJobs calls of
+# WIRE_CHUNK: while one cycle's 1,024-job head runs, later calls pile up,
+# so a later cycle splits and places its tail through greedy_place
+FO_TOPUP = 6_000
+FO_WAIT_S = 240.0           # the longest any one wait of (e) may take
+
+
+def device_ops(fn):
+    """Run ``fn`` under ``torch.profiler``; returns its result and the
+    number of the card's kernel, memcpy and memset events it caused."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if DEVICE == "cuda" else [])
+    with profile(activities=acts) as prof:
+        out = fn()
+        sync()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    finally:
+        os.unlink(path)
+    return out, sum(1 for e in events if e.get("cat") in DEVICE_CATS)
+
+
+def sync():
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def timed_ms(fn):
+    """``fn()`` and its wall time in ms, the card settled on both ends."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def same_solve(label, want, p, s):
+    """A solve's placed, nodes, reason, avail and cost against greedy_place
+    on the same batch, bitwise."""
+    got = host(p.placed, p.nodes, p.reason, s.avail, s.cost)
+    for what, a, b in zip(("placed", "nodes", "reason", "avail", "cost"),
+                          want, got):
+        check(a.shape == b.shape and np.array_equal(a, b),
+              f"{label}: {what} differs from greedy_place")
+
+
+_MP_CHILD = r"""
+import json, sys, time
+import numpy as np, torch
+from cranesched_tpu_torch.models.solver import make_cluster_state
+from cranesched_tpu_torch.parallel import distributed as d
+
+tmp, rank, nprocs, device = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
+    sys.argv[4]
+pb = np.load(tmp + "/problem.npz")
+slab = pb["total"].shape[0] // nprocs
+lo, hi = rank * slab, (rank + 1) * slab
+state = make_cluster_state(pb["total"][lo:hi], pb["total"][lo:hi],
+                           pb["alive"][lo:hi], pb["cost"][lo:hi],
+                           device=device)
+pmesh = d.bootstrap_process_mesh(rank, nprocs, slab, devices=[device])
+fences = []
+fence = pmesh.fence
+
+
+def timed(*a, **k):
+    t0 = time.monotonic()
+    try:
+        return fence(*a, **k)
+    finally:
+        fences.append(time.monotonic() - t0)
+
+
+pmesh.fence = timed
+args = [torch.as_tensor(pb[k], device=device)
+        for k in ("req", "node_num", "time_limit", "valid", "job_class")]
+masks = torch.as_tensor(pb["masks"][:, lo:hi], device=device)
+t0 = time.perf_counter()
+p, s = d.solve_greedy_sharded_classes_mp(pmesh, state, *args, masks,
+                                         max_nodes=2)
+solve_s = time.perf_counter() - t0
+pmesh.close()
+np.savez(f"{tmp}/rank{rank}.npz", placed=p.placed.cpu().numpy(),
+         nodes=p.nodes.cpu().numpy(), reason=p.reason.cpu().numpy(),
+         avail=s.avail.cpu().numpy(), cost=s.cost.cpu().numpy(),
+         fence_s=np.asarray(fences))
+counts, (n, total) = d._MET_FENCE._series[(("kind", "solve"),)]
+print(json.dumps({"rank": rank, "mesh": pmesh.describe(),
+                  "solve_s": solve_s, "fences": len(fences),
+                  "metric_count": n, "metric_sum_s": total}))
+"""
+
+
+def two_processes(data, want):
+    """(c): ``SO_RANKS`` processes, one node slab each on the card, fence
+    through a rendezvous server in this process; each rank's placements
+    and the slabs' ledger against ``want`` (greedy_place on the whole
+    cluster).  Returns the report."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+
+    from cranesched_tpu_torch.rpc.rendezvous import RendezvousServer
+
+    tmp = tempfile.mkdtemp(prefix="crane-mp-")
+    np.savez(f"{tmp}/problem.npz", **data)
+    server = RendezvousServer(token="smoke", nranks=SO_RANKS, epoch=1)
+    port = server.start("127.0.0.1:0")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CRANE_RENDEZVOUS=f"127.0.0.1:{port}",
+               CRANE_RENDEZVOUS_TOKEN="smoke")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MP_CHILD, tmp, str(r), str(SO_RANKS),
+         DEVICE], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=root) for r in range(SO_RANKS)]
+    try:
+        outs = []
+        for p in procs:
+            o, e = p.communicate(timeout=FO_WAIT_S)
+            check(p.returncode == 0,
+                  f"two processes: a rank exited {p.returncode}: {e[-2000:]}")
+            outs.append(json.loads(o.strip().splitlines()[-1]))
+        wall = time.perf_counter() - t0
+        parts = [np.load(f"{tmp}/rank{r}.npz") for r in range(SO_RANKS)]
+        for r, part in enumerate(parts):
+            for i, what in enumerate(("placed", "nodes", "reason")):
+                check(np.array_equal(part[what], want[i]),
+                      f"two processes: rank {r}'s {what} differ from "
+                      "greedy_place")
+        for i, what in ((3, "avail"), (4, "cost")):
+            check(np.array_equal(np.concatenate([p[what] for p in parts]),
+                                 want[i]),
+                  f"two processes: the slabs' {what} differ")
+        fences = np.concatenate([p["fence_s"] for p in parts])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(all(o["fences"] == o["metric_count"] for o in outs),
+          "two processes: crane_mesh_fence_seconds missed fences")
+    rep = {"ranks": SO_RANKS, "jobs": len(want[0]),
+           "slab_nodes": N_NODES // SO_RANKS, "mesh": outs[0]["mesh"],
+           "wall_s": wall, "solve_s": [o["solve_s"] for o in outs],
+           "fences_per_rank": outs[0]["fences"],
+           "fence": percentiles(fences),
+           "fence_metric_mean_ms": [o["metric_sum_s"] / o["metric_count"]
+                                    * 1e3 for o in outs]}
+    print(f"[scaleout:two-processes] {SO_RANKS} ranks x "
+          f"{rep['slab_nodes']} nodes, {rep['jobs']} jobs == greedy_place "
+          f"(bitwise, every rank and both slabs); solve "
+          f"{[round(s, 2) for s in rep['solve_s']]}s, wall {wall:.1f}s; "
+          f"crane_mesh_fence_seconds over {len(fences)} fences "
+          f"{json.dumps(rep['fence'])}", flush=True)
+    return rep
+
+
+def phase_scaleout_solves():
+    """(b)-(d) on seed 2's cluster: the sharded solves on a mesh of
+    ``SO_SHARDS`` shards all on the card, two processes fencing through
+    the rendezvous service, and the speculative and blocked solvers, each
+    bitwise against greedy_place on the same batch."""
+    import torch
+
+    from cranesched_tpu_torch.models import gpu_solver as g
+    from cranesched_tpu_torch.models.solver import (
+        JobBatch,
+        make_cluster_state,
+    )
+    from cranesched_tpu_torch.models.speculative import (
+        solve_blocked,
+        solve_speculative,
+    )
+    from cranesched_tpu_torch.parallel.sharded import (
+        make_node_mesh,
+        solve_greedy_sharded,
+        solve_greedy_sharded_classes,
+    )
+
+    rng = np.random.default_rng(2)
+    lay, total = cluster_arrays(rng, N_NODES)
+    alive = rng.random(N_NODES) > 0.005
+    cost = rng.integers(0, 50_000, N_NODES).astype(np.int32)
+    masks = np.stack([np.arange(N_NODES) % 4 == c for c in range(4)])
+    jobs = job_arrays(rng, lay, SO_JOBS)
+    jc = rng.integers(0, 4, SO_JOBS).astype(np.int32)
+    dev = torch.device(DEVICE)
+    cm = torch.as_tensor(masks, device=dev)
+
+    def fresh():
+        return make_cluster_state(total, total, alive, cost, device=DEVICE)
+
+    def batch(j):
+        return [torch.as_tensor(x[:j], device=dev) for x in (*jobs, jc)]
+
+    def dense(j):
+        req, nn, tl, valid, cls = batch(j)
+        return JobBatch(req=req, node_num=nn, time_limit=tl,
+                        part_mask=cm[cls.long()], valid=valid)
+
+    rep, ref = {}, {}
+    # the yardstick: greedy_place on the batch and on its first jobs
+    for j in (SO_JOBS, SO_DENSE_JOBS):
+        st = fresh()
+        plan = g.plan_streams(jc[:j], masks)
+        (p, s), ms = timed_ms(lambda: g.solve_greedy_gpu_auto(
+            st, *batch(j), cm, max_nodes=2, plan=plan, class_rows=masks))
+        ref[j] = host(p.placed, p.nodes, p.reason, s.avail, s.cost)
+        rep[f"greedy_place_{j}"] = {"ms": ms, "streams": plan[1],
+                                    "placed": int(ref[j][0].sum())}
+
+    # (b) the merge on the card: SO_SHARDS shards of cuda:0
+    mesh = make_node_mesh([dev] * SO_SHARDS)
+    st = fresh()
+    (p, s), ms = timed_ms(lambda: solve_greedy_sharded_classes(
+        st, *batch(SO_JOBS), cm, mesh, max_nodes=2, class_rows=masks))
+    same_solve(f"sharded classes, {SO_SHARDS} shards", ref[SO_JOBS], p, s)
+    rep["sharded_classes"] = {"shards": SO_SHARDS, "jobs": SO_JOBS,
+                              "ms": ms, "us_per_job": ms * 1e3 / SO_JOBS}
+    st = fresh()
+    (p, s), ms = timed_ms(lambda: solve_greedy_sharded(
+        st, dense(SO_DENSE_JOBS), mesh, max_nodes=2))
+    same_solve(f"sharded dense, {SO_SHARDS} shards", ref[SO_DENSE_JOBS],
+               p, s)
+    rep["sharded_dense"] = {"shards": SO_SHARDS, "jobs": SO_DENSE_JOBS,
+                            "ms": ms, "us_per_job": ms * 1e3 / SO_DENSE_JOBS}
+    # the card's operations a job: the class-table solve of the first
+    # SO_PROFILE_JOBS jobs (4 streams) on the default mesh and on this one
+    default = make_node_mesh() if DEVICE == "cuda" else make_node_mesh([dev])
+    for name, m in (("default_mesh", default), ("mesh4", mesh)):
+        st = fresh()
+        _, ops = device_ops(lambda: solve_greedy_sharded_classes(
+            st, *batch(SO_PROFILE_JOBS), cm, m, max_nodes=2,
+            class_rows=masks))
+        rep[f"device_ops_per_job_{name}"] = ops / SO_PROFILE_JOBS
+    print(f"[scaleout:merge] {SO_SHARDS} shards on {dev}: classes "
+          f"{SO_JOBS} jobs and dense {SO_DENSE_JOBS} jobs == greedy_place "
+          f"(bitwise); {json.dumps(rep)}", flush=True)
+
+    # (c) two processes, one slab each, on the first SO_DENSE_JOBS jobs
+    j = SO_DENSE_JOBS
+    rep["two_processes"] = two_processes(
+        dict(total=total, alive=alive, cost=cost, masks=masks,
+             req=jobs[0][:j], node_num=jobs[1][:j], time_limit=jobs[2][:j],
+             valid=jobs[3][:j], job_class=jc[:j]), ref[j])
+
+    # (d) the speculative and the blocked solvers on the dense batch
+    jb = dense(SO_JOBS)
+    for name, fn, kw in (
+            ("speculative", solve_speculative, dict(r_cand=32, group=8)),
+            ("blocked", solve_blocked, dict(block_size=128))):
+        st, stats = fresh(), {}
+        (p, s), ms = timed_ms(lambda: fn(st, jb, max_nodes=2, stats=stats,
+                                         **kw))
+        same_solve(name, ref[SO_JOBS], p, s)
+        rep[name] = dict(kw, ms=ms, us_per_job=ms * 1e3 / SO_JOBS,
+                         **{k: int(v) for k, v in stats.items()})
+    del jb
+    print(f"[scaleout:A11] {SO_JOBS} x {N_NODES}: speculative "
+          f"{json.dumps(rep['speculative'])}, blocked "
+          f"{json.dumps(rep['blocked'])} == greedy_place "
+          f"({rep[f'greedy_place_{SO_JOBS}']['ms']:.1f} ms) bitwise",
+          flush=True)
+    return rep
+
+
+def sharded_cycle(twin):
+    """(a): the disjoint cell's cold immediate cycle (phase 11's seed)
+    with ``solver="sharded"`` on the default mesh, against phase 11's
+    ``"cuda"`` twin: started jobs, nodes, reasons and ledger equal; the
+    greedy kernel does not launch."""
+    from cranesched_tpu_torch.ctld import SchedulerConfig
+    from cranesched_tpu_torch.models import gpu_solver as g
+
+    label = "sharded"
+    rng = np.random.default_rng(1)
+    gc.collect()
+    sched, sim, submit = build_cell(
+        rng, False, SchedulerConfig(backfill=False, solver="sharded"))
+    submit(N_JOBS, 0.0)
+    gc.collect()
+    g.greedy_place.launches = 0
+    started, last = cycle_once(sched, 100.0, label)
+    check(g.greedy_place.launches == 0,
+          f"{label}: the kernel launched {g.greedy_place.launches} times")
+    row = sched.cycle_trace.snapshot()[-1]
+    want_mesh = f"1x{len(sched._mesh)}"
+    check(last["solver"] == "sharded" and row["mesh"] == want_mesh
+          and row["device"] == DEVICE,
+          f"{label}: solver {last['solver']}, mesh {row.get('mesh')}")
+    check_ledger(sched, label)
+    same_outcome(f"{label} vs cuda", cycle_outcome(sched, started), twin)
+    rep = {"solve_ms": last["solve_ms"], "total_ms": last["total_ms"],
+           "candidates": row["candidates"], "placed": len(started),
+           "us_per_job": last["solve_ms"] * 1e3 / row["candidates"],
+           "mesh": row["mesh"]}
+    print(f"[scaleout:sharded-cycle] == cuda twin on {len(started)} starts;"
+          f" {json.dumps(rep)}", flush=True)
+    del sched, sim, submit
+    return rep
+
+
+def failover_drill():
+    """(e): a leader ``ctld_main --sim`` on the card and a standby that
+    follows it (``--ha-standby --ha-peer``), phase 12's cluster and
+    draws; ``FO_JOBS`` submits; the standby catches up, refuses a
+    mutation and runs no cycle; SIGKILL the leader; the standby promotes
+    with every acknowledged job, places jobs on the card, acknowledges
+    ``FO_TOPUP`` new submits (so that a cycle has more candidates than
+    the backfill head and its tail goes through greedy_place) and
+    schedules them on the card.
+    Returns the report and the promoted controller's greedy_place
+    launches (its trace rows)."""
+    import signal
+    import tempfile
+
+    import grpc
+
+    from cranesched_tpu_torch.rpc import CtldClient
+
+    label = "failover"
+    tmp_l = tempfile.mkdtemp(prefix="crane-leader-")
+    tmp_s = tempfile.mkdtemp(prefix="crane-standby-")
+    rng, _ = daemon_config(f"{tmp_l}/ctld.yaml", tmp_l)
+    daemon_config(f"{tmp_s}/ctld.yaml", tmp_s)
+    out = {"jobs": FO_JOBS}
+    procs, clients = [], []
+    t_phase = time.perf_counter()
+    try:
+        leader = DaemonProc(tmp_l, "leader", f"{tmp_l}/ctld.yaml")
+        procs.append(leader)
+        specs = draw_specs(rng, FO_JOBS)
+        lport, out["leader_boot_s"] = leader.banner()
+        standby = DaemonProc(
+            tmp_s, "standby", f"{tmp_s}/ctld.yaml",
+            args=("--sim", "--ha-standby", "--ha-peer",
+                  f"127.0.0.1:{lport}"))
+        procs.append(standby)
+        lc = CtldClient(f"127.0.0.1:{lport}", timeout=600.0)
+        clients.append(lc)
+        ids, dt = wire_submit(lc, specs)
+        out["submit"] = {"seconds": dt, "jobs_per_s": len(ids) / dt}
+        sport, out["standby_boot_s"] = standby.banner()
+        check(f"STANDBY of 127.0.0.1:{lport}" in standby.text(),
+              f"{label}: standby banner {standby.text()[:300]!r}")
+        sc = CtldClient(f"127.0.0.1:{sport}", timeout=600.0)
+        clients.append(sc)
+
+        def rows(client):
+            return [r for r in json.loads(client.query_stats().json)
+                    ["cycle_trace"] if r.get("solver") != "skip"]
+
+        def wait(pred, what, client=None):
+            """Wait for ``pred``; on a timeout, fail with ``client``'s
+            cycles and the standby's log tail."""
+            deadline = time.time() + FO_WAIT_S
+            while not pred():
+                if time.time() >= deadline:
+                    seen = [(r["solver"], r["device"], r["candidates"],
+                             r["placed"], r["kernel_launches"])
+                            for r in rows(client)] if client else []
+                    check(False, f"{label}: {what} not within "
+                                 f"{FO_WAIT_S:.0f}s; cycles {seen[-12:]}; "
+                                 f"standby log {standby.text('err')[-1500:]}")
+                time.sleep(0.2)
+
+        def note(what):
+            print(f"[scaleout:failover] {time.perf_counter() - t_phase:.1f}s "
+                  f"{what}", flush=True)
+
+        # the leader places part of the backlog; the standby catches up
+        # with everything acknowledged and started so far
+        note(f"leader up in {out['leader_boot_s']:.1f}s, {len(ids)} "
+             f"submits in {dt:.1f}s, standby up in "
+             f"{out['standby_boot_s']:.1f}s")
+        wait(lambda: any(r["placed"] > 0 for r in rows(lc)),
+             "a placing cycle on the leader", lc)
+        t0 = time.perf_counter()
+        mark = lc.ha_status().wal_seq
+        wait(lambda: sc.ha_status().wal_seq >= mark, "the standby's catch-up")
+        out["catch_up_s"] = time.perf_counter() - t0
+        note(f"standby caught up with seq {mark} in {out['catch_up_s']:.1f}s")
+        st = sc.ha_status()
+        check(st.role == "standby" and st.leader_address
+              == f"127.0.0.1:{lport}", f"{label}: standby status {st}")
+        try:
+            sc.submit(specs[0])
+            check(False, f"{label}: the standby took a submit")
+        except grpc.RpcError as e:
+            check(e.code() == grpc.StatusCode.FAILED_PRECONDITION
+                  and "not leader" in e.details(),
+                  f"{label}: standby refusal {e.code()} {e.details()}")
+        check(rows(sc) == [], f"{label}: the standby ran a cycle")
+        epoch = lc.ha_status().fencing_epoch
+        before = stream_states(lc)
+        out["leader_running_at_kill"] = sum(
+            1 for s, _ in before.values() if s == "Running")
+
+        # SIGKILL the leader
+        t_kill, wall_kill = time.perf_counter(), time.time()
+        leader.proc.send_signal(signal.SIGKILL)
+        leader.proc.wait(timeout=60)
+        wait(lambda: sc.ha_status().role == "leader", "the promotion")
+        out["kill_to_leader_s"] = time.perf_counter() - t_kill
+        note(f"leader SIGKILLed; the standby leads after "
+             f"{out['kill_to_leader_s']:.1f}s")
+        st = sc.ha_status()
+        check(st.fencing_epoch > epoch,
+              f"{label}: epoch {st.fencing_epoch} after {epoch}")
+        check("PROMOTED to leader" in standby.text("err"),
+              f"{label}: no promotion line")
+        after = stream_states(sc)
+        lost = [j for j in ids if j not in after]
+        check(not lost, f"{label}: {len(lost)} acknowledged jobs missing "
+                        f"after the promotion, e.g. {lost[:5]}")
+        # the dead leader's running jobs are recovered RUNNING; the
+        # promoted controller's own simulated plane never ran them, so
+        # nothing ends them: counted apart
+        out["recovered_running"] = sum(
+            1 for s, _ in after.values() if s == "Running")
+        new_ids, _ = wire_submit(sc, draw_specs(rng, FO_TOPUP))
+        check(min(new_ids) > max(ids), f"{label}: new job ids {new_ids[:3]}")
+
+        def placing():
+            return [r for r in rows(sc) if r["placed"] > 0
+                    and r["device"] == DEVICE]
+
+        wait(lambda: placing(), "a placing cycle on the card", sc)
+        first = placing()[0]
+        out["kill_to_first_placement_s"] = (
+            first["now"] + first["total_ms"] / 1e3 - wall_kill)
+        wait(lambda: any(r["kernel_launches"] >= 1 for r in placing()),
+             "a placing cycle through greedy_place", sc)
+        wait(lambda: any(j.status == "Running" for j in
+                         sc.query_jobs(job_ids=new_ids).jobs),
+             "a new job running", sc)
+        promoted = rows(sc)
+        check(all(r["device"] == DEVICE for r in promoted),
+              f"{label}: cycle devices {[r['device'] for r in promoted]}")
+        out["launches"] = sum(r["kernel_launches"] for r in promoted)
+        out["promoted_cycles"] = [{k: r.get(k) for k in (
+            "solver", "kernel_launches", "candidates", "placed",
+            "total_ms", "solve_ms")} for r in promoted]
+        out["epoch"] = [epoch, st.fencing_epoch]
+        for c in clients:
+            c.close()
+        clients.clear()
+        out["stop_s"] = standby.stop()
+        print(f"[scaleout:failover] {FO_JOBS} submits at "
+              f"{out['submit']['jobs_per_s']:.0f}/s; standby caught up "
+              f"{out['catch_up_s']:.1f}s after the leader's first placing "
+              f"cycle; SIGKILL -> leader {out['kill_to_leader_s']:.1f}s, "
+              f"-> first placement on the card "
+              f"{out['kill_to_first_placement_s']:.1f}s; every one of "
+              f"{len(ids)} acknowledged jobs there "
+              f"({out['recovered_running']} recovered running); "
+              f"{json.dumps(out)}", flush=True)
+    finally:
+        for c in clients:
+            c.close()
+        for p in procs:
+            p.kill()
+    return out
+
+
+def phase_scaleout(twin):
+    """Phase 15: (a) the sharded cycle, (b)-(d) the solves, (e) the
+    failover drill; returns the report and greedy_place's launches on
+    the drill's promoted cycles."""
+    rep = {"solves": phase_scaleout_solves()}
+    rep["sharded_cycle"] = sharded_cycle(twin)
+    rep["failover"] = failover_drill()
+    return rep, rep["failover"]["launches"]
+
+
 def main() -> int:
     try:
         return run()
@@ -3919,6 +4447,12 @@ def run() -> int:
     node_plane, paths["node_plane_cycles"] = timed(
         "node-plane", phase_node_plane,
         controller["service"]["ticks"][-1]["solve_head_ms"])
+
+    # 15. scale-out and failover: the sharded cycle against phase 11's
+    # twin, the sharded, multi-process, speculative and blocked solves,
+    # and a hot standby's promotion on the card
+    scaleout, paths["failover_cycles"] = timed("scaleout", phase_scaleout,
+                                               twin)
     launches = sum(paths.values())
     for r in (kres["stream"], kres["serial"]):
         r["max_abs_err"], r["plain_s"] = results[r["check"]]
@@ -3987,6 +4521,7 @@ def run() -> int:
     print(json.dumps({"native": native_rep}), flush=True)
     print(json.dumps({"controller": controller}), flush=True)
     print(json.dumps({"node_plane": node_plane}), flush=True)
+    print(json.dumps({"scaleout": scaleout}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -51,11 +51,10 @@ the cycle trace ring, the event log, the per-job timelines with their
 SLOs, the flight recorder, the ``torch.profiler`` capture window and
 ``explain_pending`` (``obs/``, ``ctld/explain.py``).
 
-Semantics are the JAX package's, bit for bit.  What the port does not
-carry yet raises ``NotImplementedError`` naming its ROADMAP item: the
-sharded solver (A10).  HA replication (A13) and federation (A14) are
-left out: ``fed`` and ``global_usage`` stay None, as on a single JAX
-controller.
+Semantics are the JAX package's, bit for bit, under every solver name,
+``"sharded"`` included (the node-axis-sharded solve over a device mesh,
+``parallel/sharded.py``).  Federation (ROADMAP A14) is left out: ``fed``
+and ``global_usage`` stay None, as on a single JAX controller.
 
 The cycle is an explicit ``schedule_cycle(now)`` call with virtual time;
 ``cycle_phases`` exposes it as a generator whose yielded closures (the
@@ -221,13 +220,8 @@ _GATE_REASON = {
 }
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the port yet (ROADMAP.md {item})")
-
-
 #: ``SchedulerConfig.solver`` values the port runs
-SOLVERS = ("cuda", "pallas", "native", "auto", "device")
+SOLVERS = ("cuda", "pallas", "native", "auto", "device", "sharded")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -301,8 +295,6 @@ class SchedulerConfig:
             raise ValueError(
                 f"preempt_mode must be off|requeue|cancel, "
                 f"got {self.preempt_mode!r}")
-        if self.solver == "sharded":
-            raise _not_ported("solver 'sharded'", "A10")
         if self.solver not in SOLVERS:
             raise ValueError(f"solver must be one of {'|'.join(SOLVERS)}, "
                              f"got {self.solver!r}")
@@ -578,6 +570,7 @@ class JobScheduler:
         self._mask_cache: dict[tuple, np.ndarray] = {}
         self._mask_cache_epoch = -1
         self._mask_table = _MaskTable()
+        self._mesh = None  # lazy device mesh for solver == "sharded"
         # per-cycle state of running allocations (the cost seed)
         self._ledger = RunLedger(meta.layout.num_dims)
         self._resident = ResidentClusterState(
@@ -2424,6 +2417,11 @@ class JobScheduler:
                 label = "native"
             elif solver == "native":
                 raise RuntimeError("native solver unavailable")
+        if placements is None and solver == "sharded":
+            placements = self._solve_sharded(avail, total, alive, cost0,
+                                             jobs_batch, max_nodes,
+                                             resident_ok=resident_ok)
+            label = "sharded"
         if placements is None:
             placements, label = self._solve_on_device(
                 avail, total, alive, cost0, jobs_batch, max_nodes,
@@ -2481,6 +2479,75 @@ class JobScheduler:
         num_streams = plan[1] if plan is not None else 1
         self._cur_trace["num_streams"] = num_streams
         return placements, ("cuda-stream" if num_streams > 1 else "cuda")
+
+    def _solve_sharded(self, avail, total, alive, cost0, jobs_batch,
+                       max_nodes, resident_ok=False):
+        """The node-axis-sharded solve (parallel/sharded.py) over the
+        scheduler's mesh: every visible card on the card (one shard each),
+        the scheduler's own device otherwise; ``_mesh`` may be set to any
+        mesh, repeats allowed.  Bit-identical placements to
+        ``solve_greedy``.
+
+        The node axis is padded with permanently dead nodes to a multiple
+        of the mesh size, and the class masks with ``False``: the pad
+        rows are never eligible, so placements and the first N ledger
+        rows are unaffected.  With ``resident_ok`` the padded state comes
+        from the cross-cycle resident store, keyed by the padded shape
+        and the mesh descriptor (processes x devices), so a node-count
+        change or another mesh drops the state instead of patching it."""
+        from cranesched_tpu_torch.parallel.sharded import (
+            make_node_mesh,
+            solve_greedy_sharded_classes,
+        )
+
+        if self._mesh is None:
+            self._mesh = (make_node_mesh() if self.device.type == "cuda"
+                          else make_node_mesh([self.device]))
+        mesh = self._mesh
+        d = len(mesh)
+        # a single-process scheduler: 1 process x d devices
+        mesh_desc = f"1x{d}"
+        self._cur_trace["mesh"] = mesh_desc
+        b = jobs_batch
+        n = int(avail.shape[0])
+        pad = (-n) % d
+        class_masks, class_rows = b.class_masks, b.class_rows_np
+        if pad:
+            def padded(x, fill=0):
+                if isinstance(x, torch.Tensor):
+                    tail = torch.full((pad,) + tuple(x.shape[1:]), fill,
+                                      dtype=x.dtype, device=x.device)
+                    return torch.cat([x, tail])
+                x = np.asarray(x)
+                return np.concatenate(
+                    [x, np.full((pad,) + x.shape[1:], fill, x.dtype)])
+
+            avail, total, alive, cost0 = (padded(x) for x in (
+                avail, total, alive, cost0))
+            class_masks = torch.cat([class_masks, torch.zeros(
+                (class_masks.shape[0], pad), dtype=torch.bool,
+                device=class_masks.device)], dim=1)
+            class_rows = np.concatenate([np.asarray(class_rows, bool),
+                                         np.zeros((class_rows.shape[0], pad),
+                                                  bool)], axis=1)
+        use_resident = resident_ok and self._resident.enabled
+        if use_resident:
+            state, _mode = self._resident.acquire(
+                avail, total, alive, cost0,
+                key=("sharded", n + pad, int(total.shape[1]),
+                     self._mask_table.generation, mesh_desc))
+        else:
+            state = make_cluster_state(avail, total, alive, cost0,
+                                       device=self.device)
+        placements, sharded = solve_greedy_sharded_classes(
+            state, b.req, b.node_num, b.time_limit, b.valid, b.job_class,
+            class_masks, mesh, max_nodes=max_nodes, class_rows=class_rows)
+        if use_resident:
+            self._resident.adopt(sharded.gather())
+        dev = self.device
+        return Placements(placed=placements.placed.to(dev),
+                          nodes=placements.nodes.to(dev),
+                          reason=placements.reason.to(dev))
 
     def _solve_native(self, avail, total, alive, cost0, jobs_batch,
                       max_nodes):
@@ -3583,4 +3650,5 @@ class JobScheduler:
         self._cand_rows = None
         self._ordered_rows = None
         self._run_attrs = None
+        self._mesh = None
         self._resident.invalidate()

@@ -9,6 +9,8 @@ dependency order, recovery from the embedded DB, then serve):
     python -m cranesched_tpu_torch.ctld_main -c etc/config.yaml --sim
     python -m cranesched_tpu_torch.ctld_main -c etc/config.yaml --sim \\
         --device cpu
+    python -m cranesched_tpu_torch.ctld_main -c standby.yaml \\
+        --ha-standby --ha-peer LEADER_HOST:PORT
 
 The scheduler runs on the CUDA card (``--device cuda``, the default),
 acquired first within a time budget (``CRANE_ACQUIRE_TIMEOUT``); if the
@@ -20,9 +22,13 @@ processes register over gRPC (``CranedRegister``), and the dispatcher
 (``rpc/dispatcher.py``) pushes each placement to them.  ``--sim``
 attaches the in-process simulated node plane instead (every configured
 node is immediately alive and runs jobs on the virtual completion
-queue).  What the port does not carry yet is refused by its ROADMAP.md
-item: a hot standby (``--ha-standby``; A13) and a ``Federation:`` block
-(A14).
+queue).  A ``Federation:`` block is refused naming ROADMAP.md A14.
+
+``--ha-standby --ha-peer ADDR`` starts a hot standby of the leader at
+ADDR: it takes the card like a leader, replicates the leader's snapshot
+and WAL tail into its own WAL (its config names its own ``Wal:``), serves
+queries and refuses mutations, runs no cycle, and promotes itself once
+the leader's lease frees (``ha/follower.py``).
 
 The first stdout line is the ``listening on port N`` banner: wrappers
 parse the bound port out of it.
@@ -37,12 +43,6 @@ import signal
 import sys
 import threading
 import time
-
-
-def _refuse(what: str, item: str) -> int:
-    print(f"FATAL: {what} is not in the port yet (ROADMAP.md {item})",
-          file=sys.stderr, flush=True)
-    return 2
 
 
 def _stderr_event(type: str, severity: str, detail: str = "") -> None:
@@ -71,16 +71,24 @@ def main(argv=None) -> int:
                     help="rotating log file (32 MiB x 5 by default)")
     ap.add_argument("--log-level", default="info")
     ap.add_argument("--ha-standby", action="store_true",
-                    help="start as a hot standby (ROADMAP.md A13)")
+                    help="start as a hot standby: replicate from "
+                         "--ha-peer, serve queries only, and promote "
+                         "when the leader's lease frees")
+    ap.add_argument("--ha-peer", default="",
+                    help="the other ctld's address (the leader to "
+                         "replicate from when --ha-standby; advertised "
+                         "to redirected clients otherwise)")
     ap.add_argument("--snapshot-interval", type=float, default=60.0,
-                    help="seconds between WAL snapshots (0 disables)")
+                    help="seconds between WAL snapshots (leader only; "
+                         "0 disables)")
     args = ap.parse_args(argv)
-    if args.ha_standby:
-        return _refuse("a hot standby (--ha-standby)", "A13")
+    if args.ha_standby and not args.ha_peer:
+        ap.error("--ha-standby requires --ha-peer")
 
     # bounded acquisition of the card BEFORE the first cycle can touch
     # it under the RPC lock; the event goes out first, then the daemon
-    # stops: it never carries on on the CPU unless asked to
+    # stops: it never carries on on the CPU unless asked to.  A standby
+    # takes the card here too, so a promotion never waits on it
     from cranesched_tpu_torch.parallel.acquire import ensure_device
     acquisition = ensure_device(args.device, event_sink=_stderr_event)
     if not acquisition.get("acquired", False):
@@ -124,21 +132,27 @@ def main(argv=None) -> int:
               f"({scheduler.archive.count()} jobs)", file=sys.stderr,
               flush=True)
 
-    # recovery before serving (reference JobScheduler::Init).  The
-    # leader takes the WAL-dir lease FIRST: a second ctld pointed at the
-    # same WAL fails fast instead of corrupting the log
+    # recovery before serving (reference JobScheduler::Init).  A leader
+    # takes the WAL-dir lease FIRST: a second ctld pointed at the same
+    # WAL fails fast instead of corrupting the log.  A standby skips all
+    # of this — its follower thread seeds from its own local
+    # snapshot+WAL and only opens them for writing at promotion.
     lease = None
     if cfg.wal_path:
+        # both roles write under the WAL dir (the standby keeps its
+        # replicated WAL, snapshot, and observed epoch there)
+        os.makedirs(os.path.dirname(cfg.wal_path) or ".", exist_ok=True)
+    if cfg.wal_path and not args.ha_standby:
         from cranesched_tpu_torch.ha import LeaderLease
         from cranesched_tpu_torch.ha.snapshot import recover_from_snapshot
         from cranesched_tpu_torch.utils.filelock import FileLockHeld
-        os.makedirs(os.path.dirname(cfg.wal_path) or ".", exist_ok=True)
         lease = LeaderLease(cfg.wal_path)
         try:
             epoch = lease.acquire()
         except FileLockHeld:
             print(f"FATAL: another ctld holds the lease on "
-                  f"{cfg.wal_path} (is a leader already running?)",
+                  f"{cfg.wal_path} (is a leader already running?); "
+                  f"start this one with --ha-standby to follow it",
                   file=sys.stderr, flush=True)
             return 1
         scheduler.fencing_epoch = epoch
@@ -195,26 +209,48 @@ def main(argv=None) -> int:
     server, port = serve(scheduler, sim=sim, address=address,
                          cycle_interval=args.cycle_interval,
                          dispatcher=dispatcher, auth=auth, tls=tls,
-                         metrics_port=metrics_port)
+                         metrics_port=metrics_port,
+                         standby=args.ha_standby,
+                         peer_address=args.ha_peer)
     print(f"cranectld [{cfg.cluster_name}] listening on port {port} "
           f"({'simulated' if args.sim else 'real'} node plane, "
           f"{len(meta.nodes)} nodes configured, "
           f"device {scheduler.device}"
-          f"{', TLS' if tls else ''})", flush=True)
+          f"{', TLS' if tls else ''}"
+          f"{', STANDBY of ' + args.ha_peer if args.ha_standby else ''}"
+          ")", flush=True)
     if server.metrics_port is not None:
         print(f"metrics: http://0.0.0.0:{server.metrics_port}/metrics",
               flush=True)
 
-    # the snapshotter needs the server lock, so it starts after serve()
+    # HA plumbing needs the server lock, so it starts after serve()
     snapshotter = None
+    follower = None
     if cfg.wal_path:
         from cranesched_tpu_torch import ha as _ha
-        _ha.ROLE_GAUGE.set(1)
-        if args.snapshot_interval > 0:
+
+        def _start_snapshotter():
+            nonlocal snapshotter
+            if args.snapshot_interval <= 0:
+                return
             snapshotter = _ha.Snapshotter(
                 scheduler, scheduler.wal, server._lock, cfg.wal_path,
                 interval=args.snapshot_interval)
             snapshotter.start()
+
+        if args.ha_standby:
+            follower = _ha.HaFollower(
+                server, args.ha_peer, cfg.wal_path,
+                token=(auth.craned_token if auth is not None else ""),
+                tls=tls.for_client() if tls else None,
+                on_promote=lambda epoch: _start_snapshotter())
+            server.ha_follower = follower
+            follower.start()
+            print(f"hot standby: replicating from {args.ha_peer}",
+                  flush=True)
+        else:
+            _ha.ROLE_GAUGE.set(1)
+            _start_snapshotter()
 
     syncer = None
     if cfg.license_sync.get("Program"):
@@ -234,6 +270,8 @@ def main(argv=None) -> int:
     stop.wait()
     if syncer is not None:
         syncer.stop()
+    if follower is not None:
+        follower.stop()
     if snapshotter is not None:
         snapshotter.stop()
     server.stop()

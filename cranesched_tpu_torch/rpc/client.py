@@ -25,11 +25,12 @@ class StreamResult:
 
 class CtldClient:
     def __init__(self, address: str, timeout: float = 30.0,
-                 token: str = "", tls=None):
+                 token: str = "", tls=None,
+                 max_receive_bytes: int | None = None):
         self.address = address
         self.timeout = timeout
         self._stub = GrpcStub(address, SERVICE, timeout, token=token,
-                              tls=tls)
+                              tls=tls, max_receive_bytes=max_receive_bytes)
         # kept for tests that introspect the channel
         self._channel = self._stub._channel
 

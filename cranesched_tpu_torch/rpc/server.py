@@ -21,9 +21,14 @@ Two clock modes:
 * virtual time (``tick_mode=True``): nothing runs until a ``Tick`` RPC
   supplies ``now`` — deterministic for tests, replays, and simulations.
 
-This is the single controller.  The federation RPCs abort
-``UNIMPLEMENTED`` naming ROADMAP.md A14, the HA replication RPCs naming
-A13.  A real node plane passes ``dispatcher=`` (``rpc/dispatcher.py``):
+A controller is a leader or a hot standby (``standby=True``): a standby
+serves the read surface from its shadow state (``ha/follower.py`` keeps
+it), answers every mutation and every craned RPC ``FAILED_PRECONDITION``
+("not leader"), runs no cycle, and becomes the leader through
+``promote_to_leader``.  ``HaStatus``, ``HaFetchSnapshot`` and
+``HaFetchWal`` are the replication surface a standby polls.  The
+federation RPCs abort ``UNIMPLEMENTED`` naming ROADMAP.md A14.  A real
+node plane passes ``dispatcher=`` (``rpc/dispatcher.py``):
 ``CranedRegister`` opens its push channel to the craned, and ``stop()``
 closes it.
 """
@@ -40,6 +45,7 @@ import grpc
 from cranesched_tpu_torch.craned.sim import SimCluster, SimCraned
 from cranesched_tpu_torch.ctld.defs import JobStatus, StepStatus
 from cranesched_tpu_torch.ctld.scheduler import JobScheduler
+from cranesched_tpu_torch.obs import REGISTRY as _OBS
 from cranesched_tpu_torch.rpc import crane_pb2 as pb
 from cranesched_tpu_torch.rpc.consts import SERVICE
 from cranesched_tpu_torch.rpc.convert import (
@@ -54,14 +60,12 @@ from cranesched_tpu_torch.rpc.convert import (
 NOT_PORTED = {
     "QueryShardMap": "A14", "LeaseNodes": "A14", "ConfirmGang": "A14",
     "ReleaseLease": "A14", "FetchUsage": "A14", "MigratePartition": "A14",
-    "HaStatus": "A13", "HaFetchSnapshot": "A13", "HaFetchWal": "A13",
 }
-_NOT_PORTED_WHAT = {"A14": "federation", "A13": "HA replication"}
+_NOT_PORTED_WHAT = {"A14": "federation"}
 
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the port yet (ROADMAP.md {item})")
+_MET_STALE = _OBS.counter(
+    "crane_fed_stale_reads_refused_total",
+    "follower reads refused for exceeding the caller's max_staleness")
 
 
 def _node_state(node) -> str:
@@ -87,9 +91,7 @@ class CtldServer:
                  cycle_interval: float = 1.0, tick_mode: bool = False,
                  dispatcher=None, auth=None, tls=None,
                  metrics_port: int | None = None,
-                 standby: bool = False):
-        if standby:
-            raise _not_ported("a hot standby (standby=True)", "A13")
+                 standby: bool = False, peer_address: str = ""):
         self.scheduler = scheduler
         self.sim = sim
         # real node plane: per-node push stubs (wired into the
@@ -122,6 +124,14 @@ class CtldServer:
         # the base tick (SchedulerConfig.cycle_idle_sleep)
         self._cycle_kick = threading.Event()
         scheduler.cycle_kick = self._cycle_kick.set
+        # HA: a standby serves the read surface from its shadow state
+        # and aborts mutations with FAILED_PRECONDITION so failover-
+        # aware clients (HaCtldClient, craned's address rotation) move
+        # on; promote_to_leader() flips the role and the cycle-loop gate
+        self.ha_role = "standby" if standby else "leader"
+        self.ha_peer = peer_address  # the other ctld (redirect hint)
+        self.ha_follower = None      # set by ctld_main on a standby
+        self.failovers = 0
 
     # ---- authentication helpers ----
 
@@ -449,14 +459,35 @@ class CtldServer:
     # chunk and the lock hold per chunk
     QUERY_CHUNK = 1000
 
+    def _staleness_guard(self, max_staleness: float, context) -> None:
+        """Bounded-staleness read contract: a follower may serve this
+        read only if it was fully caught up with its leader within the
+        last ``max_staleness`` seconds; otherwise it refuses with
+        FAILED_PRECONDITION so the client rotates to the leader.
+        ``max_staleness == 0`` keeps the old contract — any replica
+        answers with whatever it has.  Leaders always pass."""
+        if max_staleness <= 0 or self.ha_follower is None:
+            return
+        stale = self.ha_follower.staleness()
+        if stale > max_staleness:
+            _MET_STALE.inc()
+            context.abort(
+                grpc.StatusCode.FAILED_PRECONDITION,
+                "staleness %.3fs exceeds max_staleness %.3fs%s" % (
+                    stale, max_staleness,
+                    "; try " + self.ha_peer if self.ha_peer else ""))
+
     def _durable_seq(self) -> int:
-        """The durability watermark the answers reflect: the WAL's
-        fsync'd seq."""
+        """The durability watermark this replica's answers reflect:
+        applied_seq on a follower, the WAL's fsync'd seq on a leader."""
+        if self.ha_follower is not None:
+            return self.ha_follower.applied_seq
         wal = self.scheduler.wal
         return wal.durable_seq if wal is not None else 0
 
     def QueryJobsInfo(self, request, context):
         self._require_authenticated(self._ident(context), context)
+        self._staleness_guard(request.max_staleness, context)
         limit = request.limit or 0
         with self._lock:
             jobs, names = self._job_snapshot(request)
@@ -474,6 +505,7 @@ class CtldServer:
         a 100k-job cqueue neither builds one giant message nor stalls
         the scheduling cycle for its whole duration."""
         self._require_authenticated(self._ident(context), context)
+        self._staleness_guard(request.max_staleness, context)
         with self._lock:
             jobs, names = self._job_snapshot(request)
         remaining = request.limit or len(jobs)
@@ -491,6 +523,7 @@ class CtldServer:
 
     def QueryClusterInfo(self, request, context):
         self._require_authenticated(self._ident(context), context)
+        self._staleness_guard(request.max_staleness, context)
         from cranesched_tpu_torch.ops.resources import (
             CPU_SCALE, DIM_CPU, DIM_MEM, MEM_UNIT_BYTES)
         with self._lock:
@@ -584,6 +617,7 @@ class CtldServer:
 
     def QueryStats(self, request, context):
         self._require_authenticated(self._ident(context), context)
+        self._staleness_guard(request.max_staleness, context)
         import json as _json
 
         from cranesched_tpu_torch.obs import REGISTRY
@@ -631,13 +665,20 @@ class CtldServer:
                 "last_crash": self.scheduler.stats.get("last_crash"),
             }
             wal = self.scheduler.wal
+            lag = 0
+            if self.ha_follower is not None:
+                lag = max(0, self.ha_follower.leader_seq
+                          - self.ha_follower.applied_seq)
             doc["ha"] = {
-                "role": "leader",
+                "role": self.ha_role,
                 "fencing_epoch": self.scheduler.fencing_epoch,
-                "wal_seq": wal.durable_seq if wal is not None else 0,
-                "replication_lag": 0,
-                "failovers_total": 0,
-                "peer": "",
+                "wal_seq": (self.ha_follower.applied_seq
+                            if self.ha_follower is not None
+                            else (wal.durable_seq
+                                  if wal is not None else 0)),
+                "replication_lag": lag,
+                "failovers_total": self.failovers,
+                "peer": self.ha_peer,
             }
             return pb.StatsReply(json=_json.dumps(doc),
                                  durable_seq=self._durable_seq())
@@ -936,6 +977,7 @@ class CtldServer:
         Crane.proto:1588).  job_id != 0 additionally returns that job's
         recorded timeline and its pending explanation."""
         self._require_authenticated(self._ident(context), context)
+        self._staleness_guard(request.max_staleness, context)
         import json as _json
         timeline = explain = ""
         with self._lock:
@@ -960,6 +1002,7 @@ class CtldServer:
         """Structured cluster-event ring with min-severity / time /
         cursor / type filters (``cevents``)."""
         self._require_authenticated(self._ident(context), context)
+        self._staleness_guard(request.max_staleness, context)
         with self._lock:
             recs = self.scheduler.events.since(
                 after_seq=request.after_seq,
@@ -986,6 +1029,90 @@ class CtldServer:
         if ok:
             return pb.CaptureProfileReply(ok=True, dir=detail)
         return pb.CaptureProfileReply(ok=False, error=detail)
+
+    def HaStatus(self, request, context):
+        self._require_authenticated(self._ident(context), context)
+        with self._lock:
+            wal = self.scheduler.wal
+            seq = wal.durable_seq if wal is not None else 0
+            lag = 0
+            leader = "" if self.ha_role == "leader" else self.ha_peer
+            if self.ha_follower is not None:
+                seq = self.ha_follower.applied_seq
+                lag = max(0, self.ha_follower.leader_seq - seq)
+            return pb.HaStatusReply(
+                role=self.ha_role,
+                fencing_epoch=self.scheduler.fencing_epoch,
+                wal_seq=seq, leader_address=leader,
+                replication_lag=lag)
+
+    def HaFetchSnapshot(self, request, context):
+        """Serve a point-in-time snapshot to a syncing standby."""
+        self._require_authenticated(self._ident(context), context)
+        import json as _json
+
+        from cranesched_tpu_torch.ha.snapshot import capture_snapshot
+        with self._lock:
+            doc = capture_snapshot(self.scheduler)
+            epoch = self.scheduler.fencing_epoch
+        return pb.HaSnapshotReply(ok=True, seq=doc["seq"],
+                                  payload=_json.dumps(
+                                      doc, separators=(",", ":")),
+                                  fencing_epoch=epoch)
+
+    def HaFetchWal(self, request, context):
+        """Cursor-based WAL tail for the polling standby."""
+        self._require_authenticated(self._ident(context), context)
+        with self._lock:
+            wal = self.scheduler.wal
+            if wal is None:
+                return pb.HaFetchReply(ok=False,
+                                       error="no WAL on this ctld")
+            out = wal.tail_since(request.after_seq,
+                                 limit=request.limit or 512)
+            # the follower's replication cursor must never run ahead of
+            # the durability barrier — inside an open group `seq` does
+            seq = wal.durable_seq
+            epoch = self.scheduler.fencing_epoch
+            # event-ring piggyback: the ring is bounded and events are
+            # advisory, so no resync protocol — a follower that missed
+            # evicted entries just starts from what is still in the ring
+            events = self.scheduler.events.since(
+                after_seq=request.after_event_seq)
+            event_seq = self.scheduler.events.last_seq
+        reply = pb.HaFetchReply(ok=True, wal_seq=seq,
+                                fencing_epoch=epoch, event_seq=event_seq)
+        for r in events:
+            reply.events.add(seq=r["seq"], time=r["time"], type=r["type"],
+                             severity=r["severity"], node=r["node"],
+                             job_id=r["job_id"], detail=r["detail"])
+        if out is None:
+            reply.resync = True
+        else:
+            for s, line in out:
+                reply.records.add(seq=s, payload=line)
+        return reply
+
+    def promote_to_leader(self, epoch: int) -> None:
+        """Flip a standby to leader: the cycle-loop gate opens on the
+        next tick and the mutation surface starts answering.  The
+        scheduler-side rebuild (recover + device state + epoch) is the
+        follower's job BEFORE calling this."""
+        self.ha_role = "leader"
+        self.ha_follower = None
+        self.failovers += 1
+        self.scheduler.events.emit(
+            "failover", "critical",
+            detail="standby promoted to leader (epoch %d)" % epoch,
+            time=self._now())
+        # seed push channels from the replicated node addresses so a
+        # re-sent kill (recover's cancel-intent redelivery) can land
+        # BEFORE the craneds get around to re-registering
+        if self.dispatcher is not None:
+            for node in self.scheduler.meta.nodes.values():
+                if node.alive and node.address:
+                    self.dispatcher.node_registered(node.node_id,
+                                                    node.address)
 
     def _refuse(self, name: str):
         """Handler of an RPC the port does not serve yet: aborts
@@ -1047,16 +1174,47 @@ class CtldServer:
                              pb.MigratePartitionReply),
     }
 
+    # the surface a standby may serve from its shadow state; everything
+    # else aborts FAILED_PRECONDITION ("not leader") so failover-aware
+    # callers rotate to the leader.  Craned-internal RPCs are
+    # deliberately NOT here: craneds must register/report to the leader
+    # only, or the standby's shadow state would fork from the WAL.
+    _STANDBY_OK = frozenset({
+        "QueryJobsInfo", "QueryJobsStream", "QueryStepsInfo",
+        "QueryClusterInfo", "QueryStats", "QueryJobSummary", "HaStatus",
+        "QueryEvents", "QueryShardMap",
+    })
+
     def _now(self) -> float:
         return self.sim.now if (self.tick_mode and self.sim is not None) \
             else time.time()
+
+    def _leader_only(self, name, fn):
+        """Gate one handler on leadership.  The abort code is part of
+        the failover contract: HaCtldClient and the craned's ctld
+        address rotation both treat FAILED_PRECONDITION as 'ask the
+        other ctld'."""
+        def handler(request, context):
+            if self.ha_role != "leader":
+                context.abort(
+                    grpc.StatusCode.FAILED_PRECONDITION,
+                    f"not leader (standby"
+                    f"{'; try ' + self.ha_peer if self.ha_peer else ''})")
+            return fn(request, context)
+        return handler
+
+    def _handler(self, name: str):
+        if name in NOT_PORTED:
+            return self._refuse(name)
+        fn = getattr(self, name)
+        return fn if name in self._STANDBY_OK else \
+            self._leader_only(name, fn)
 
     def start(self, address: str = "127.0.0.1:0") -> int:
         """Start serving; returns the bound port."""
         handlers = {
             name: grpc.unary_unary_rpc_method_handler(
-                (self._refuse(name) if name in NOT_PORTED
-                 else getattr(self, name)),
+                self._handler(name),
                 request_deserializer=req.FromString,
                 response_serializer=reply.SerializeToString)
             for name, (req, reply) in self._RPCS.items()
@@ -1118,6 +1276,8 @@ class CtldServer:
             self._cycle_kick.clear()
             if self._stop.is_set():
                 break
+            if self.ha_role != "leader":
+                continue  # standby: shadow state only, never schedule
             now = time.time()
             # arm the stall sentry around the cycle: a cycle that
             # neither finishes nor raises (a wedged solve, a stuck
@@ -1147,7 +1307,7 @@ class CtldServer:
         base = self.cycle_interval
         sched = self.scheduler
         idle = float(getattr(sched.config, "cycle_idle_sleep", 0.0))
-        if idle <= base:
+        if self.ha_role != "leader" or idle <= base:
             return base
         with self._lock:
             if not sched.can_idle():

@@ -12,7 +12,8 @@ import grpc
 class GrpcStub:
     def __init__(self, address: str, service: str, timeout: float = 30.0,
                  token: str = "", tls=None,
-                 token_key: str = "crane-token"):
+                 token_key: str = "crane-token",
+                 max_receive_bytes: int | None = None):
         self.address = address
         self.service = service
         self.timeout = timeout
@@ -22,11 +23,17 @@ class GrpcStub:
         # (e.g. the rendezvous service's per-gang secret)
         self.token = token
         self.token_key = token_key
+        # the largest reply accepted: gRPC's default (4 MiB) unless
+        # given; -1 is unlimited (a standby's snapshot pull, ROADMAP.md
+        # C6)
+        options = ([("grpc.max_receive_message_length", max_receive_bytes)]
+                   if max_receive_bytes is not None else [])
         if tls is not None:
             from cranesched_tpu_torch.utils.pki import secure_channel
-            self._channel = secure_channel(address, tls)
+            self._channel = secure_channel(address, tls, options)
         else:
-            self._channel = grpc.insecure_channel(address)
+            self._channel = grpc.insecure_channel(address,
+                                                  options=options or None)
         self._stubs = {}
 
     def call(self, name, request, reply_cls, timeout: float | None = None,

@@ -251,9 +251,9 @@ def channel_credentials(tls: TlsConfig):
         certificate_chain=_read(tls.cert) if tls.cert else None)
 
 
-def secure_channel(address: str, tls: TlsConfig):
+def secure_channel(address: str, tls: TlsConfig, options=()):
     import grpc
-    options = []
+    options = list(options)
     if tls.override_authority:
         options.append(("grpc.ssl_target_name_override",
                         tls.override_authority))

@@ -2,7 +2,8 @@
 as a subprocess on the CPU (``--device cpu``): the banner, submits over
 the wire, SIGTERM with exit 0, a restart from the WAL (and its snapshot)
 that keeps every acknowledged job in the state the last query showed,
-the held lease's refusal, the refusals naming ROADMAP.md A13 and A14,
+the held lease's refusal, a hot standby, the refusal naming ROADMAP.md
+A14,
 the real node plane (no ``--sim``: a ``craned_main`` subprocess registers
 and runs jobs as real processes), and the boot path's bounded acquisition of the card, which never
 carries on on the CPU when it fails (tested with a stubbed probe).  In
@@ -168,19 +169,34 @@ def test_submit_sigterm_restart_keeps_every_acked_job(tmp_path):
 @pytest.mark.parametrize("args,extra,item", [
     (("--device", "cpu"), "", None),
     (("--device", "cpu"), "  DispatchWorkers: 16\n", None),
-    (("--sim", "--ha-standby", "--device", "cpu"), "", "A13"),
+    (("--sim", "--ha-standby", "--ha-peer", "127.0.0.1:1", "--device",
+      "cpu"), "", "A13"),
     (("--sim", "--device", "cpu"),
      "Federation:\n  ShardName: s0\n", "A14"),
 ], ids=["real-node-plane", "dispatch-workers", "standby", "federation"])
 def test_unported_features_refused_by_item(tmp_path, args, extra, item):
-    """What the port does not carry is refused naming its ROADMAP item;
-    what came since (item None: the real node plane and its dispatch
-    pool) starts with its banner and stops with 0 on SIGTERM."""
+    """What the port does not carry is refused naming its ROADMAP item
+    (A14); what came since starts with its banner and stops with 0 on
+    SIGTERM: the real node plane and its dispatch pool (item None) and a
+    hot standby (A13), which here follows a leader that never answers,
+    so it takes its own free lease and promotes itself."""
     d = Daemon(tmp_path, "d", "-c", _config(tmp_path, extra), *args)
     try:
         if item is None:
             d.port()
             assert "(real node plane, 4 nodes configured" in d.stdout()
+            os.kill(d.proc.pid, signal.SIGTERM)
+            assert d.wait() == 0
+            return
+        if item == "A13":
+            client = CtldClient(f"127.0.0.1:{d.port()}", timeout=10.0)
+            assert "STANDBY of 127.0.0.1:1" in d.stdout()
+            assert "hot standby: replicating from 127.0.0.1:1" in \
+                d.stdout()
+            assert _until(lambda: client.ha_status().role == "leader")
+            assert "PROMOTED to leader (epoch 1" in d.stderr()
+            assert client.submit(_spec()).job_id == 1
+            client.close()
             os.kill(d.proc.pid, signal.SIGTERM)
             assert d.wait() == 0
             return

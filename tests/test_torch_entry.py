@@ -1,15 +1,13 @@
 """The port's entry points run on the card unless asked for the CPU, and
-refuse loudly what the port does not carry yet.
+accept every field of the JAX package's ``SchedulerConfig``.
 
 Here there is no CUDA device, so every entry point given no ``device``
-must raise; with ``device="cpu"`` it runs.  Out-of-slice configuration
-(the sharded solver) raises
-``NotImplementedError`` naming its ROADMAP item instead of being
-accepted or rejected as invalid; what the port carries (every other
-field of the JAX package's ``SchedulerConfig``, packed and
-exclusive jobs, licenses, accounts, topologies, preemption modes,
-reservations named by a job, arrays, dependencies, begin times,
-allocation-only jobs and submit hooks) is accepted.
+must raise; with ``device="cpu"`` it runs.  What the port carries (every
+field of the JAX package's ``SchedulerConfig``, every solver name with
+``"sharded"``, packed and exclusive jobs, licenses, accounts,
+topologies, preemption modes, reservations named by a job, arrays,
+dependencies, begin times, allocation-only jobs and submit hooks) is
+accepted; an unknown solver name is invalid.
 """
 
 import numpy as np
@@ -68,16 +66,16 @@ def test_entry_points_raise_without_cuda():
     (dict(cycle_idle_sleep=5.0), None),
 ])
 def test_unsupported_config_raises(kw, item):
-    """The sharded solver is refused by its ROADMAP item; the real node
-    plane's dispatch pool and the server loop's idle sleep are live since
-    the dispatcher and the server are in the port (item None: accepted as
-    given); an unknown solver name is invalid."""
-    if item is None:
-        cfg = SchedulerConfig(**kw)
-        assert all(getattr(cfg, k) == v for k, v in kw.items())
-    else:
-        with pytest.raises(NotImplementedError, match=item):
-            SchedulerConfig(**kw)
+    """Every knob the port once refused is accepted as given: the sharded
+    solver since its ROADMAP item (A10) landed, the real node plane's
+    dispatch pool and the server loop's idle sleep since the dispatcher
+    and the server are in the port (item None).  An unknown solver name
+    is invalid."""
+    from cranesched_tpu_torch.ctld.scheduler import SOLVERS
+    cfg = SchedulerConfig(**kw)
+    assert all(getattr(cfg, k) == v for k, v in kw.items())
+    if item == "A10":
+        assert "sharded" in SOLVERS
     with pytest.raises(ValueError, match="solver"):
         SchedulerConfig(solver="tpu")
 

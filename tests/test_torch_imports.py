@@ -9,7 +9,9 @@ runs a 16-node scheduling cycle on the CPU with a topology, a license, a
 packed job, a dependency, an array, a WAL and the job trace, recovers a
 second scheduler from that WAL, runs a cycle with the native solver
 under a profiler capture, and serves ``etc/config.yaml``'s cluster over
-gRPC (the daemon's modules: config, lease, snapshot, server and client).
+gRPC (the daemon's modules: config, lease, snapshot, server and client),
+solves on a mesh of CPU shards and with the speculative and blocked
+solvers, and builds a hot standby's server and follower.
 The node plane (the craned, its supervisor, ``craned_main``, ``coord``,
 the rendezvous service) also imports with ``torch`` blocked, so a craned
 and every step's supervisor start without loading it.
@@ -149,6 +151,31 @@ _CHILD = textwrap.dedent("""
     client.close()
     server.stop()
     lease.release()
+    # the mesh and speculative solvers, and the hot standby's surface
+    import numpy as np, torch
+    from cranesched_tpu_torch.ha import HaFollower
+    from cranesched_tpu_torch.models.solver import JobBatch, make_cluster_state
+    from cranesched_tpu_torch.models.speculative import (
+        solve_blocked, solve_speculative)
+    from cranesched_tpu_torch.parallel import (
+        make_node_mesh, solve_greedy_sharded)
+    tot = np.tile(np.array([8, 8, 8], np.int32), (8, 1))
+    jobs = JobBatch(req=torch.ones((6, 3), dtype=torch.int32),
+                    node_num=torch.ones(6, dtype=torch.int32),
+                    time_limit=torch.full((6,), 60, dtype=torch.int32),
+                    part_mask=torch.ones((6, 8), dtype=torch.bool),
+                    valid=torch.ones(6, dtype=torch.bool))
+    mesh = make_node_mesh(["cpu"] * 4)
+    outs = [fn(make_cluster_state(tot, tot, np.ones(8, bool),
+                                  device="cpu"), jobs)[0].nodes.tolist()
+            for fn in (lambda s, j: solve_greedy_sharded(s, j, mesh),
+                       solve_speculative, solve_blocked)]
+    assert outs[0] == outs[1] == outs[2], outs
+    standby, sport = serve(sched2, tick_mode=True, standby=True)
+    follower = HaFollower(standby, "127.0.0.1:1",
+                          os.path.join(tmp, "s.wal"))
+    assert follower.staleness() == float("inf")
+    standby.stop()
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("OK", len(started), end)
@@ -175,7 +202,9 @@ def test_port_imports_without_jax_and_runs_a_cycle():
                 "parallel", "parallel.acquire", "ctld_main",
                 "rpc.dispatcher", "rpc.rendezvous", "rpc.cfored",
                 "craned.daemon", "craned.supervisor", "craned.cgroup",
-                "craned_main", "coord", "utils.gres"):
+                "craned_main", "coord", "utils.gres",
+                "parallel.sharded", "parallel.distributed",
+                "models.speculative", "ha.follower"):
         assert f"cranesched_tpu_torch.{mod}" in mods, mod
     code = _CHILD.format(blocked=BLOCKED, mods=mods)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -246,6 +275,13 @@ def test_chip_smoke_imports_nothing_of_jax():
     roots = _imported_roots(ROOT / "chip_smoke.py")
     assert "cranesched_tpu_torch" in roots
     assert not roots & set(BLOCKED), roots & set(BLOCKED)
+
+
+def test_follower_imports_no_torch_of_its_own():
+    """The hot standby's replication loop works on job records and the
+    WAL: it imports no torch beyond what the scheduler does."""
+    roots = _imported_roots(PORT / "ha" / "follower.py")
+    assert "torch" not in roots and "cranesched_tpu_torch" in roots
 
 
 def test_port_sources_import_nothing_of_jax():

@@ -16,10 +16,11 @@
   metrics endpoint, ``QueryStats`` and watchdog fault injection.
 - *The WAL of a batch submit*: the JAX server's records byte for byte,
   one group (one fsync) per 32-spec chunk.
-- *Refusals*: the federation RPCs (ROADMAP.md A14), the HA replication
-  RPCs and a standby (A13).  A real node plane (``dispatcher=``) is
-  accepted, registered craneds get push channels, and ``stop()`` closes
-  it.
+- *Refusals*: the federation RPCs (ROADMAP.md A14).  The HA replication
+  RPCs answer, and a standby serves queries and refuses mutations
+  (``tests/test_torch_ha.py`` holds them against the JAX package).  A
+  real node plane (``dispatcher=``) is accepted, registered craneds get
+  push channels, and ``stop()`` closes it.
 """
 
 import json
@@ -715,7 +716,21 @@ _REFUSED = [("query_shard_map", (), "A14"),
 @pytest.mark.parametrize("method,args,item", _REFUSED,
                          ids=[m for m, _, _ in _REFUSED])
 def test_unported_rpcs_abort_naming_their_item(ctld, method, args, item):
-    client = ctld[0]
+    """The federation RPCs abort UNIMPLEMENTED naming A14; the HA
+    replication RPCs, in since A13, answer a leader's replies."""
+    client, _server, sched, _port = ctld
+    if item == "A13":
+        reply = getattr(client, method)(*args)
+        if method == "ha_status":
+            assert reply.role == "leader" and reply.leader_address == ""
+            assert reply.fencing_epoch == sched.fencing_epoch
+        elif method == "ha_fetch_snapshot":
+            doc = json.loads(reply.payload)
+            assert reply.ok and doc["seq"] == reply.seq == 0
+        else:
+            # this leader keeps no WAL: nothing to replicate
+            assert not reply.ok and "no WAL" in reply.error
+        return
     with pytest.raises(grpc.RpcError) as info:
         getattr(client, method)(*args)
     assert info.value.code() == grpc.StatusCode.UNIMPLEMENTED
@@ -744,8 +759,26 @@ def test_real_node_plane_and_standby_refused():
     client.close()
     server.stop()
     assert dispatcher._pool._shutdown
-    with pytest.raises(NotImplementedError, match="A13"):
-        tserver.CtldServer(sched, standby=True)
+    # a standby (A13) serves the read surface and refuses mutations and
+    # craned RPCs with FAILED_PRECONDITION, naming its peer
+    standby, sport = serve(sched, tick_mode=True, standby=True,
+                           peer_address="127.0.0.1:1")
+    client = CtldClient(f"127.0.0.1:{sport}")
+    try:
+        assert client.ha_status().role == "standby"
+        assert client.ha_status().leader_address == "127.0.0.1:1"
+        for call in (lambda: client.submit(job_spec()),
+                     lambda: client._call(
+                         "CranedRegister", pb.CranedRegisterRequest(
+                             name="r1"), pb.CranedRegisterReply)):
+            with pytest.raises(grpc.RpcError) as info:
+                call()
+            assert info.value.code() == grpc.StatusCode.FAILED_PRECONDITION
+            assert "not leader" in info.value.details()
+            assert "127.0.0.1:1" in info.value.details()
+    finally:
+        client.close()
+        standby.stop()
     assert sched.fed is None and sched.global_usage is None
 
 
