@@ -89,11 +89,12 @@ Phases (any failure exits non-zero and prints no result):
    7-9;
 10. the lifecycle and a restart: ``SchedulerConfig()`` on the same
    cluster with accounts in a sqlite ``AccountStore``, a ``JobArchive``
-   and a ``WriteAheadLog(fsync=True)`` in a temporary directory; 100,000
-   submissions in one WAL group (plain jobs, some holding a license;
-   10,000 dependents, OR-deps of two and edges on ids never submitted
-   among them; 5,000 begin times; 4,000 jobs in the reservation
-   ``maint`` on 400 nodes of p1 for [600, 4,200] s, its ACL one account;
+   and a ``WriteAheadLog(fsync=True)`` in a temporary directory;
+   ``LIFE_JOBS`` (75,000, a depth cut) submissions in one WAL group
+   (plain jobs, some holding a license; at 100,000 they would be 10,000
+   dependents, OR-deps of two and edges on ids never submitted among
+   them; 5,000 begin times; 4,000 jobs in the reservation ``maint`` on
+   400 nodes of p1 for [600, 4,200] s, its ACL one account;
    800 held; 200 array templates of 50 tasks, half at most 5 at once;
    10 allocations); cycle 1; the operator's events up to t = 900 as jobs
    complete (hold and release, time limits and priorities modified,
@@ -159,7 +160,8 @@ Phases (any failure exits non-zero and prints no result):
    that places nothing, SIGTERM and exit 0, a restart that shows every
    acknowledged job as the last query before the stop did; boot-to-banner
    seconds,
-   the first cycle's time, and each cycle's ``total_ms``/``solve_ms``;
+   the first cycle's time, and each cycle's ``total_ms``/``solve_ms``.
+   Leg (b) runs beside phase 16, in a process of its own;
 13. the CPU checks: every plain version and CPU replay above runs in
    one of ``CPU_WORKERS`` worker processes beside the card's phases;
    the script waits for all of them and fails on any failure;
@@ -167,11 +169,11 @@ Phases (any failure exits non-zero and prints no result):
    ``python3 -m cranesched_tpu_torch.ctld_main -c <yaml>`` on the card
    with no ``--sim`` (phase 12's cluster, ``CranedTimeoutSec: 10``, and
    two nodes under host names that resolve here in a partition of their
-   own), 100,000 of phase 12's draws as real scripts (echo the job id,
-   node and shell PID, sleep 1-8 s, 2% ``exit 3``) and ten sleepers on
-   the gang nodes, then ``NP_CRANEDS`` real ``craned_main`` processes (a
-   quarter a partition, each a configured node with its CPUs and
-   memory) and the two gang nodes register.  Real-time cycles for
+   own), ``NP_JOBS`` (25,000) of phase 12's draws as real scripts (echo
+   the job id, node and shell PID, sleep 1-8 s, 2% ``exit 3``) and ten
+   sleepers on the gang nodes, then ``NP_CRANEDS`` real ``craned_main``
+   processes (a quarter a partition, each a configured node with its
+   CPUs and memory) and the two gang nodes register.  Real-time cycles for
    ``NP_RUN_S`` from the last registration, sampled: no alive node runs
    more CPUs or memory than it has; every finished job's output names
    the nodes the ctld recorded, the ``exit 3`` jobs report 3.  Then the
@@ -210,11 +212,43 @@ Phases (any failure exits non-zero and prints no result):
    submit and running no cycle, the leader SIGKILLed, the standby
    promoted with every acknowledged job (the dead leader's running jobs
    recovered running, counted apart), ``FO_TOPUP`` new submits
-   acknowledged and scheduled on the card through greedy_place;
-16. one JSON line each for the cycles, the lifecycle, the obs phase, the
-   native solver, the controller, the node plane and the scale-out
-   phase, one describing every kernel, then the card line, then the
-   result line ``{"ok": true, "device": {...}}``.
+   acknowledged and scheduled on the card through greedy_place; (e) runs
+   beside phase 16, in a process of its own;
+16. federation (``cranesched_tpu_torch/fed/``): (a) a
+   ``FederatedCluster`` on the card, ``SchedulerConfig()``, shards east
+   (p0, p1) and west (p2, p3) of ``N_NODES // 4`` nodes a partition (64
+   CPUs, 256 GiB each, as ``SimShard`` builds them), a WAL each and a
+   usage book: first the solo-vs-federated parity at the JAX test's size
+   and a lease taken while a cycle solves (its commit places nothing on
+   the leased nodes); then phase 12's 100,000 draws routed by partition
+   and two cycles per shard, each equal to a plain ``JobScheduler`` over
+   that shard's partitions alone (started set, nodes, pending reasons,
+   ledger), the usage pumped after each; then a gang window in which
+   p1 and p2 keep ``FED_KEEP`` nodes each (held back until then) and the
+   shards' cycles wait: ``FED_GANGS`` gangs of ``FED_GANG_NODES`` nodes
+   over p1 and p2 through the arbiter, west SIGKILLed right after its
+   first lease and recovered from its WAL (the bare reserve released,
+   the gang placed once), every gang whole on leased nodes of both
+   shards, no lease left; then p1 migrates east -> west with jobs
+   running and pending on it: west's node axis grows to 7,500 and its
+   next cycle launches greedy_place on it and places onto p1's nodes,
+   east's p1 rows stay, dead, and every job is there once by name.
+   Cycle ms by phase, placements, leases, gang commits, seal-to-flip
+   seconds and device memory are printed.  (b) two ``ctld_main --sim``
+   shards on the card from one ``Federation:`` YAML (phase 12's cluster,
+   ``MaxJobsPerUser`` / ``MaxSubmitJobsPerUser`` that bind): a lease,
+   confirm and release round trip; ``FED_DAEMON_JOBS`` of phase 12's
+   draws all to east, west's share forwarded with its redirect hint, the
+   submit gate refusing some; the ``FetchUsage`` counts converging and
+   the limits never exceeded; a ``FederatedClient`` fan-out with
+   ``max_staleness``; ``MigratePartition`` of p1 over the wire; west
+   SIGKILLed and restarted with the imported partition and every job
+   once by name; greedy_place in both shards' cycles (trace rows).  (b),
+   12 (b) and 15 (e) run beside (a), each in a process of its own;
+17. one JSON line each for the cycles, the lifecycle, the obs phase, the
+   native solver, the controller, the node plane, the scale-out phase
+   and the federation, one describing every kernel, then the card line,
+   then the result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.  The kernel build goes to
 ``build/kernels/`` (see ``cranesched_tpu_torch/kernels/build.py``).
@@ -232,6 +266,10 @@ import numpy as np
 N_NODES = 10_000
 N_JOBS = 100_000
 TOPUP_JOBS = 5_000
+# the lifecycle cell's submissions, cut from N_JOBS for the run's time
+# limit (PERF.md §4): still above the ~57,000 jobs the cluster runs at
+# once, so cycle 1 leaves a backlog for the operator's events and cycle 2
+LIFE_JOBS = 75_000
 # the contended backfill cycle's high-QoS gangs (8 nodes x 32 CPUs, 10
 # min) on partition p0: 750 at 10,000 nodes, ~80% of p0's CPUs
 BIG_GANGS = N_NODES * 3 // 40
@@ -252,7 +290,9 @@ PREEMPT_BURST = N_NODES // 10
 CPU_CHECK_PREEMPTORS = 200
 # the CPU checks (the plain versions of the kernel, the routes' CPU
 # replays: ~10 min of CPU at this size) run in worker processes beside
-# the card's phases, each with 2 threads
+# the card's phases, each with 1 thread: with 2 each they took 8 of the
+# card machine's 8 cores from the phases' own thread, whose phases then
+# ran up to 1.8x slower on some hosts than on others (PERF.md §6)
 CPU_WORKERS = 4
 # the share of p3's cold jobs in QoS mid, which high may not preempt
 MID_SHARE = 0.5
@@ -289,7 +329,7 @@ def mark_processes() -> None:
     ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
 
 
-def _marked_pids() -> list[int]:
+def _marked_pids(trackers: bool) -> list[int]:
     import os
 
     mark = f"{RUN_MARK}={os.environ.get(RUN_MARK, '')}".encode()
@@ -304,17 +344,17 @@ def _marked_pids() -> list[int]:
                 state = fh.read().rpartition(")")[2].split()[0]
         except OSError:
             continue
-        # multiprocessing's resource tracker ends when this process does
         if (mark in env and state != "Z"
-                and b"resource_tracker" not in _cmdline(d)):
+                and (trackers or b"resource_tracker" not in _cmdline(d))):
             pids.append(int(d))
     return pids
 
 
-def stop_marked() -> list[str]:
+def stop_marked(trackers: bool = False) -> list[str]:
     """SIGKILL every live process of this run but this one, then reap
     this process's exited children; returns the command lines of those
-    that were live."""
+    that were live.  multiprocessing's resource tracker, which the pools
+    of worker processes share, is spared unless ``trackers``."""
     import os
     import signal
 
@@ -322,7 +362,7 @@ def stop_marked() -> list[str]:
         return []
     seen = []
     for _ in range(10):
-        pids = _marked_pids()
+        pids = _marked_pids(trackers)
         if not pids:
             break
         seen += [(p, _cmdline(p)) for p in pids
@@ -351,7 +391,7 @@ _checks = {}
 def _worker_init():
     import torch
 
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
 
 
 def cpu_check(label, fn, *args):
@@ -1623,15 +1663,15 @@ def phase_preempt(backfill: bool):
 
 
 def lifecycle_counts():
-    """The lifecycle cell's submissions and events at ``N_JOBS`` jobs and
-    ``N_NODES`` nodes (their full-size values at 100,000 x 10,000)."""
-    s = N_JOBS / 100_000
+    """The lifecycle cell's submissions and events at ``LIFE_JOBS`` jobs
+    and ``N_NODES`` nodes (their full-size values at 100,000 x 10,000)."""
+    s = LIFE_JOBS / 100_000
 
     def k(n):
         return max(1, round(n * s))
 
     return {
-        "plain": N_JOBS - sum(k(n) for n in (10_000, 5_000, 4_000, 800,
+        "plain": LIFE_JOBS - sum(k(n) for n in (10_000, 5_000, 4_000, 800,
                                               200)),
         "dependents": k(10_000), "or_deps": k(1_000), "missing_deps": k(500),
         "begin": k(5_000), "maint": k(4_000), "held": k(800),
@@ -1717,9 +1757,9 @@ def record_tail(sched, record, key):
 
 
 def phase_lifecycle(ref_commit_ms):
-    """The job lifecycle and a restart at the north-star size, on the
+    """The job lifecycle and a restart at the north-star width, on the
     default configuration with accounts kept in a sqlite store, a job
-    archive and an fsync'd WAL: 100,000 submissions in one WAL group
+    archive and an fsync'd WAL: ``LIFE_JOBS`` submissions in one WAL group
     (plain jobs, dependents, begin times, jobs in the reservation
     ``maint``, held jobs, array templates, allocations); cycle 1; the
     operator's events up to t = 900 as jobs complete; cycle 2, with
@@ -1811,7 +1851,7 @@ def phase_lifecycle(ref_commit_ms):
             check(jid > 0, f"{label}: submit rejected")
             return jid
 
-        # 1. 100,000 submissions at t = 0 in one WAL group
+        # 1. LIFE_JOBS submissions at t = 0 in one WAL group
         kinds = {}
         t0 = time.perf_counter()
         bytes0 = os.path.getsize(paths["wal"])
@@ -1855,7 +1895,7 @@ def phase_lifecycle(ref_commit_ms):
                                 max_concurrent=5 if i % 2 else 0)), 0.0)
                 for i in range(n["arrays"])]
         records = wal.seq
-        check(records == N_JOBS and wal.durable_seq == records,
+        check(records == LIFE_JOBS and wal.durable_seq == records,
               f"{label}: {records} WAL records, {wal.durable_seq} durable")
         check(wal.fsync_total - f0 == 1 and wal.groups_total - g0 == 1,
               f"{label}: the submissions took {wal.fsync_total - f0} "
@@ -1864,7 +1904,7 @@ def phase_lifecycle(ref_commit_ms):
                      "bytes": os.path.getsize(paths["wal"]) - bytes0,
                      "fsyncs": 1, "groups": 1,
                      "s": time.perf_counter() - t0}]
-        print(f"[cycle:{label}] setup + {N_JOBS} submissions in one WAL "
+        print(f"[cycle:{label}] setup + {LIFE_JOBS} submissions in one WAL "
               f"group: {wal_rows[0]['s']:.1f}s, {records} records, "
               f"{wal_rows[0]['bytes'] / 2**20:.1f} MiB, 1 fsync "
               f"({ {k: len(v) for k, v in kinds.items()} })", flush=True)
@@ -2952,7 +2992,8 @@ class DaemonProc:
     """``python3 -m cranesched_tpu_torch.ctld_main`` with its output in
     files; killed by PID if still alive at the end."""
 
-    def __init__(self, tmp, tag, cfg, args=("--sim",)):
+    def __init__(self, tmp, tag, cfg, args=("--sim",),
+                 listen="127.0.0.1:0"):
         import os
         import subprocess
 
@@ -2964,7 +3005,7 @@ class DaemonProc:
         with open(self.out, "w") as out, open(self.err, "w") as err:
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", "cranesched_tpu_torch.ctld_main",
-                 "-c", cfg, *args, "--listen", "127.0.0.1:0", *device],
+                 "-c", cfg, *args, "--listen", listen, *device],
                 stdout=out, stderr=err)
 
     def text(self, which="out"):
@@ -3164,18 +3205,6 @@ def head_stretch(daemon, base):
           f"{[round(x, 2) for x in daemon['head_stretch']]}", flush=True)
 
 
-def phase_controller():
-    """Phase 12: legs (a) and (b); returns the report and greedy_place's
-    launches by path (the ticks here, the daemon's cycles in its own
-    process, read from its trace rows)."""
-    service, launches = phase_service()
-    daemon = phase_daemon()
-    head_stretch(daemon, service["ticks"][-1]["solve_head_ms"])
-    return ({"service": service, "daemon": daemon,
-             "transport": "grpc over 127.0.0.1"},
-            {"rpc_ticks": launches, "daemon_cycles": daemon["launches"]})
-
-
 # ---------------- 14. the real node plane ----------------
 
 # real craned_main processes, a quarter per partition.  The card's
@@ -3184,6 +3213,10 @@ def phase_controller():
 # while the ctld's backfill head, which hands the GIL over ~100 times a
 # job, stretched to 53 s on an H100 host (PERF.md §6)
 NP_CRANEDS = 16
+# the backlog of real scripts, cut from N_JOBS for the run's time limit
+# (PERF.md §4): still far more than the 18 alive nodes run in the window,
+# so every cycle is a split one with the kernel's tail
+NP_JOBS = N_JOBS // 4
 NP_RUN_S = 30.0            # real-time cycles once the craneds registered
 NP_CANCEL = 10             # running jobs cancelled
 NP_PING_S = 2.0            # the craneds' ping interval
@@ -3353,9 +3386,9 @@ def node_plane_specs(rng, tmp):
     """Phase 12's draws as real scripts: each echoes its job id, node
     and shell PID to its output file and sleeps 1-8 s; ``NP_FAIL_SHARE``
     of them then ``exit 3``."""
-    specs = draw_specs(rng, N_JOBS)
-    sleeps = rng.integers(1, 9, N_JOBS)
-    fails = rng.random(N_JOBS) < NP_FAIL_SHARE
+    specs = draw_specs(rng, NP_JOBS)
+    sleeps = rng.integers(1, 9, NP_JOBS)
+    fails = rng.random(NP_JOBS) < NP_FAIL_SHARE
     for i, s in enumerate(specs):
         s.script = (f"echo $CRANE_JOB_ID $CRANE_NODE_NAME $$\n"
                     f"sleep {sleeps[i]}\n" + ("exit 3\n" if fails[i] else ""))
@@ -4310,28 +4343,861 @@ def failover_drill():
     return out
 
 
-def phase_scaleout(twin):
-    """Phase 15: (a) the sharded cycle, (b)-(d) the solves, (e) the
-    failover drill; returns the report and greedy_place's launches on
-    the drill's promoted cycles."""
-    rep = {"solves": phase_scaleout_solves()}
-    rep["sharded_cycle"] = sharded_cycle(twin)
-    rep["failover"] = failover_drill()
-    return rep, rep["failover"]["launches"]
+# ---------------------------------------------------------------------------
+# 16. federation: partition-sharded controllers on the card
+# ---------------------------------------------------------------------------
+
+FED_LAYOUT = {"east": ("p0", "p1"), "west": ("p2", "p3")}
+FED_CPU, FED_MEM_GB = 64.0, 256   # every node of (a), as SimShard builds
+FED_GANGS = 200                   # cross-partition gangs over p1 and p2
+FED_GANG_NODES = 8                # SchedulerConfig().max_nodes_per_job
+FED_KEEP = 7                      # p1 / p2 nodes left undrained for them
+FED_GANG_RUNTIME = 60.0           # seconds a gang runs
+FED_ROUND_S = 60.0                # the gang window's clock step
+FED_ROUNDS = 60                   # the longest the gang window may take
+FED_DAEMON_JOBS = 10_000          # (b): a depth cut (PERF.md §4)
+FED_MAX_SUBMIT = 8_000            # (b): MaxSubmitJobsPerUser
+FED_MAX_JOBS = 3_000              # (b): MaxJobsPerUser
+FED_SLACK = 1_000                 # (b): PublishSlack
+FED_WAIT_S = 240.0                # (b): the longest any one wait may take
+
+
+def fed_nodes(name, parts, layout):
+    """(name, partition) of every node of one shard, in ``SimShard``'s
+    order (partitions sorted, ``<shard>-<part>-n<i>``)."""
+    return [(f"{name}-{part}-n{i:04d}", part) for part in sorted(parts)
+            for i in range(layout[part])]
+
+
+def fed_twin(name, parts, layout):
+    """One plain port ``JobScheduler`` on the card over one shard's
+    partitions alone (the same nodes, names and ids as its ``SimShard``,
+    the same config), with a ``SimCluster``; no federation plane."""
+    from cranesched_tpu_torch.craned.sim import SimCluster
+    from cranesched_tpu_torch.ctld import (
+        JobScheduler,
+        MetaContainer,
+        SchedulerConfig,
+    )
+
+    meta = MetaContainer()
+    for nid, (node, part) in enumerate(fed_nodes(name, parts, layout)):
+        meta.add_node(node, meta.layout.encode(
+            cpu=FED_CPU, mem_bytes=FED_MEM_GB << 30,
+            memsw_bytes=FED_MEM_GB << 30, is_capacity=True),
+            partitions=(part,))
+        meta.craned_up(nid)
+    sched = JobScheduler(meta, SchedulerConfig(
+        job_trace=True, job_trace_capacity=65536), device=DEVICE)
+    sim = SimCluster(sched)
+    sim.wire(sched)
+    return sched, sim
+
+
+def fed_specs(rng, k, prefix):
+    """``k`` of phase 12's draws (``draw_specs``'s, in its order) as the
+    scheduler's ``JobSpec``s, as ``rpc.convert.spec_from_pb`` makes them
+    of the wire specs (its defaults for the fields the draws leave
+    unset), each named ``<prefix><i>`` for the by-name audits: ids are
+    shard-local and change on a migration."""
+    from cranesched_tpu_torch.ctld import JobSpec, ResourceSpec
+
+    out = []
+    for i in range(k):
+        part = f"p{rng.integers(0, 4)}"
+        tl = int(rng.integers(60, 86400))
+        cpu = float(rng.integers(1, 17))
+        mem = int(rng.integers(1, 33)) << 30
+        out.append(JobSpec(
+            name=f"{prefix}{i:06d}", user="user", account="default",
+            partition=part, res=ResourceSpec(cpu=cpu, mem_bytes=mem),
+            node_num=int(rng.integers(1, 3)), time_limit=tl,
+            sim_runtime=float(rng.integers(30, 1800))))
+    return out
+
+
+def fed_outcome(sched, started):
+    """Started ids, their nodes, every pending reason, and the ledger."""
+    meta = sched.meta
+    return (sorted(started),
+            {j: tuple(sched.running[j].node_ids) for j in started
+             if j in sched.running},
+            {j: job.pending_reason for j, job in sched.pending.items()},
+            np.stack([meta.nodes[i].avail for i in sorted(meta.nodes)]))
+
+
+def fed_row(sched):
+    """The scheduler's last non-skip trace row."""
+    rows = [r for r in sched.cycle_trace.snapshot()
+            if r.get("solver") != "skip"]
+    return rows[-1]
+
+
+def fed_parity_small():
+    """The bitwise solo-vs-federated check at the JAX test's size
+    (``tests/test_federation.py``'s parity case) on the card: one
+    controller over {batch: 3, gpu: 2} and a two-shard federation place
+    every job at the same time on the same nodes.  Then a lease taken
+    while a cycle solves: the commit refuses every placement onto the
+    leased nodes (revalidation on the lease's ``ResReduceEvent``)."""
+    from cranesched_tpu_torch.ctld import JobSpec, ResourceSpec
+    from cranesched_tpu_torch.fed.sim import FederatedCluster, SimShard
+
+    specs = []
+    for i in range(24):
+        part = "gpu" if i % 3 == 0 else "batch"
+        specs.append(JobSpec(
+            name=f"j{i:03d}", user="u", partition=part,
+            res=ResourceSpec(cpu=2.0 + (i % 3) * 2.0, mem_bytes=1 << 30,
+                             memsw_bytes=1 << 30),
+            sim_runtime=3.0 + (i % 5)))
+
+    def placements(sched):
+        return {j.spec.name: (j.start_time, tuple(sorted(
+            sched.meta.nodes[n].name.split("-", 1)[1]
+            for n in j.node_ids)))
+            for j in list(sched.history.values())
+            + list(sched.running.values())}
+
+    solo = SimShard("solo", {"batch": 3, "gpu": 2}, device=DEVICE)
+    for s in specs:
+        solo.submit(s, 0.0)
+    now = 0.0
+    while now < 1000.0 and not solo.drained():
+        now += 1.0
+        solo.tick(now)
+    fc = FederatedCluster({"east": {"batch": 3}, "west": {"gpu": 2}},
+                          device=DEVICE)
+    for s in specs:
+        fc.submit(s, 0.0)
+    fc.run_until_drained(max_cycles=1000)
+    fed = {}
+    for shard in fc.shards.values():
+        fed.update(placements(shard.scheduler))
+    check(solo.drained() and len(fed) == len(specs)
+          and fed == placements(solo.scheduler),
+          "federation parity: the two shards placed otherwise than one "
+          "controller")
+
+    # a lease mid-solve: the solve sees every node free, the commit
+    # must not place onto the nodes leased in between
+    shard = SimShard("lease", {"batch": 4}, device=DEVICE)
+    for i in range(8):
+        shard.submit(JobSpec(name=f"l{i}", res=ResourceSpec(
+            cpu=4.0, mem_bytes=1 << 30, memsw_bytes=1 << 30),
+            partition="batch", sim_runtime=50.0), 0.0)
+    gen = shard.scheduler.cycle_phases(1.0)
+    fn = next(gen)
+    leased = []
+    try:
+        while True:
+            result = fn()
+            if not leased:
+                req = ResourceSpec(cpu=1.0).encode(shard.meta.layout)
+                names, _e, _s = shard.fed.lease_nodes(
+                    "mid-solve", "batch", 2, req, 0.0, 1.0)
+                leased = {shard.meta.node_by_name(n).node_id for n in names}
+            fn = gen.send(result)
+    except StopIteration:
+        pass
+    on_leased = [j.job_id for j in shard.scheduler.running.values()
+                 if set(j.node_ids) & leased]
+    check(shard.scheduler.running and not on_leased,
+          f"lease mid-solve: jobs {on_leased} committed onto leased nodes")
+    check_ledger(shard.scheduler, "lease mid-solve", resident=False)
+    return {"jobs": len(fed), "equal": True,
+            "mid_solve_lease_nodes": len(leased),
+            "started_beside_lease": len(shard.scheduler.running)}
+
+
+def fed_spy_leases(shard, leases):
+    """Record every lease ``shard`` grants (lease id -> node names)."""
+    real = shard.fed.lease_nodes
+
+    def spy(lease_id, partition, node_num, req, ttl, now):
+        out = real(lease_id, partition, node_num, req, ttl, now)
+        leases[lease_id] = list(out[0])
+        return out
+
+    shard.fed.lease_nodes = spy
+
+
+def phase_federation():
+    """(a): two shards in one process on the card, four partitions of
+    ``N_NODES // 4`` nodes; returns the report and greedy_place's
+    launches in the shards' cycles (their trace rows)."""
+    import tempfile
+
+    from cranesched_tpu_torch.ctld import JobSpec, ResourceSpec
+    from cranesched_tpu_torch.fed.arbiter import GangRequest
+    from cranesched_tpu_torch.fed.sim import FederatedCluster
+    from cranesched_tpu_torch.fed.usage import GlobalLimits
+    from cranesched_tpu_torch.models import gpu_solver as g
+    from cranesched_tpu_torch.obs.introspect import sample_device_memory
+
+    label = "federation"
+    per = N_NODES // 4
+    layout = {p: per for parts in FED_LAYOUT.values() for p in parts}
+    gang_parts = {"p1": "east", "p2": "west"}
+    tmp = tempfile.mkdtemp(prefix="crane-fed-")
+    rep = {"nodes_per_partition": per, "jobs": N_JOBS, "gangs": FED_GANGS}
+    t_phase = time.perf_counter()
+
+    def note(what):
+        print(f"[federation] {time.perf_counter() - t_phase:.1f}s {what}",
+              flush=True)
+
+    rep["parity_small"] = fed_parity_small()
+    note(f"solo-vs-federated parity at the JAX test's size, and a lease "
+         f"mid-solve: {rep['parity_small']}")
+    sample_device_memory(peak_reset=True)
+
+    # the main path: counts zeroed just before it
+    g.greedy_place.launches = 0
+    fc = FederatedCluster(
+        {name: {p: per for p in parts} for name, parts in FED_LAYOUT.items()},
+        cpu=FED_CPU, mem_gb=FED_MEM_GB, wal_dir=tmp, device=DEVICE,
+        global_limits=GlobalLimits(), publish_slack=0)
+    twins = {name: fed_twin(name, parts, layout)
+             for name, parts in FED_LAYOUT.items()}
+    # FED_KEEP nodes of p1 and of p2 held back (drained) for the gang
+    # window, in the shard and in its twin alike
+    kept = {}
+    for part, name in gang_parts.items():
+        ids = sorted(fc.shards[name].meta.partitions[part].node_ids)
+        kept[part] = ids[:FED_KEEP]
+        for sched in (fc.shards[name].scheduler, twins[name][0]):
+            for nid in kept[part]:
+                sched.meta.drain(nid)
+    rng, _ = daemon_config(f"{tmp}/draws.yaml", tmp)
+    specs = fed_specs(rng, N_JOBS, "f")
+    names = [s.name for s in specs]
+    t0 = time.perf_counter()
+    wals = [s.scheduler.wal for s in fc.shards.values()]
+    for w in wals:
+        w.begin_batch()
+    for spec in specs:
+        shard, jid = fc.submit(spec, 0.0)
+        check(jid > 0 and twins[shard][0].submit(spec, 0.0) == jid,
+              f"{label}: submit of {spec.name} to {shard}")
+    for w in wals:
+        w.commit_batch()
+    rep["submit_s"] = time.perf_counter() - t0
+    note(f"{N_JOBS} submits routed by partition (and to the twins) in "
+         f"{rep['submit_s']:.1f}s: "
+         + ", ".join(f"{n} {len(s.scheduler.pending)}"
+                     for n, s in fc.shards.items()))
+
+    # two cycles per shard, each against its twin, the usage pumped
+    rep["cycles"] = {n: [] for n in fc.shards}
+    twin_launches = 0
+
+    def cycle_row(name, sched, c, started, wall):
+        row = fed_row(sched)
+        last = dict(sched.stats["last_cycle"])
+        last.update(cycle=c, placed=len(started), wall_s=wall,
+                    kernel_launches=row["kernel_launches"],
+                    device=row["device"], nodes=len(sched.meta.nodes))
+        rep["cycles"][name].append(last)
+        check(row["device"] == DEVICE and row["kernel_launches"] >= 1,
+              f"{label} {name} cycle {c}: {row['solver']} on "
+              f"{row['device']}, {row['kernel_launches']} launches")
+        return last
+
+    for c, now in enumerate((100.0, 1000.0)):
+        fc.now = now
+        for name, shard in fc.shards.items():
+            t1 = time.perf_counter()
+            started = shard.tick(now)
+            wall = time.perf_counter() - t1
+            sched = shard.scheduler
+            check_ledger(sched, f"{label} {name} cycle {c}",
+                         resident=False)
+            twin, tsim = twins[name]
+            tsim.advance_to(now)
+            before = g.greedy_place.launches
+            tstarted = twin.schedule_cycle(now)
+            twin_launches += g.greedy_place.launches - before
+            check_ledger(twin, f"{label} {name} twin cycle {c}",
+                         resident=False)
+            a, b = fed_outcome(sched, started), fed_outcome(twin, tstarted)
+            check(a[0] == b[0] and a[1] == b[1] and a[2] == b[2]
+                  and np.array_equal(a[3], b[3]),
+                  f"{label} {name} cycle {c}: the shard's cycle differs "
+                  f"from its solo twin's ({len(a[0])} vs {len(b[0])} "
+                  "started)")
+            last = cycle_row(name, sched, c, started, wall)
+            note(f"{name} cycle {c}: placed {len(started)}, equal to its "
+                 f"twin; {json.dumps(last)}")
+        fc.arbiter.pump(now)
+        fc.pump_usage(now)
+    del twins
+    gc.collect()
+
+    # the gang window: the held-back nodes come back and the rest of p1
+    # and p2 drains (no gang of FED_GANG_NODES fits one partition
+    # whole, so each splits over both shards); the shards' cycles wait
+    # while the arbiter and the usage gossip pump each step
+    def drain_all_but_kept(part, on):
+        meta = fc.shards[gang_parts[part]].meta
+        for nid in sorted(meta.partitions[part].node_ids):
+            meta.drain(nid, on and nid not in kept[part])
+
+    for part in gang_parts:
+        drain_all_but_kept(part, True)
+    gang_spec = JobSpec(user="gang", res=ResourceSpec(
+        cpu=4.0, mem_bytes=8 << 30, memsw_bytes=8 << 30),
+        time_limit=3600, sim_runtime=FED_GANG_RUNTIME)
+    # the first gang names p2 first: with both kept sets equally free its
+    # west lease comes first, and west dies right after it (the reserve
+    # durable, no confirm)
+    for i in range(FED_GANGS):
+        fc.submit_gang(GangRequest(
+            name=f"gang{i:03d}", node_num=FED_GANG_NODES,
+            partitions=("p2", "p1") if i == 0 else ("p1", "p2"),
+            spec=gang_spec))
+    leases = {}
+    for shard in fc.shards.values():
+        fed_spy_leases(shard, leases)
+    fc.shards["west"].crash_after_lease = True
+    rounds = 0
+    crash = {}
+    t_gangs = time.perf_counter()
+    while fc.arbiter.queue and rounds < FED_ROUNDS:
+        now += FED_ROUND_S
+        rounds += 1
+        fc.now = now
+        for shard in fc.shards.values():
+            if shard.alive:
+                with shard.lock:
+                    shard.sim.advance_to(now)
+                    shard.scheduler.process_status_changes()
+                    shard.fed.expire(now)
+        fc.arbiter.pump(now)
+        if not fc.shards["west"].alive:
+            crash = {"arbiter": dict(fc.arbiter.stats),
+                     "bare_lease": sorted(leases)}
+            check(fc.arbiter.stats["commits"] == 0
+                  and fc.arbiter.stats["aborts"] >= 1,
+                  f"{label}: the crash drill {fc.arbiter.stats}")
+            t1 = time.perf_counter()
+            fc.recover("west", now)
+            crash["recover_s"] = time.perf_counter() - t1
+            west = fc.shards["west"]
+            released = [lid for lid, (ev, _p) in
+                        west.scheduler.wal.replay_fed(west.wal_path).items()
+                        if ev == "fed_release"]
+            check(not west.fed.leases and released,
+                  f"{label}: west recovered with leases "
+                  f"{west.fed.leases}, released {released}")
+            crash["released_by_recovery"] = released
+            crash["recovered_live_jobs"] = (len(west.scheduler.pending)
+                                            + len(west.scheduler.running))
+            # a drain is the operator's, not in the WAL: re-applied
+            drain_all_but_kept("p2", True)
+            fed_spy_leases(west, leases)
+            note(f"west SIGKILLed after its lease for gang000; recovered "
+                 f"from its WAL on {DEVICE} in {crash['recover_s']:.1f}s "
+                 f"({crash['recovered_live_jobs']} live jobs), the bare "
+                 f"reserve {released} released")
+        fc.pump_usage(now)
+    rep["gang_window"] = {"rounds": rounds, "virtual_s": rounds * FED_ROUND_S,
+                          "seconds": time.perf_counter() - t_gangs,
+                          "leases_granted": len(leases),
+                          "arbiter": dict(fc.arbiter.stats)}
+    check(crash and not fc.arbiter.queue
+          and fc.arbiter.stats["commits"] == FED_GANGS,
+          f"{label}: {len(fc.arbiter.queue)} gangs left after {rounds} "
+          f"steps, {fc.arbiter.stats}, crash drill {crash}")
+    # every gang placed once, whole, on both shards, each member on the
+    # nodes its lease named; no node double-placed; no lease left
+    members = {}
+    for sname, shard in fc.shards.items():
+        sched = shard.scheduler
+        for col in (sched.pending, sched.running, sched.history):
+            for job in col.values():
+                if job.spec.name.startswith("gang"):
+                    members.setdefault(job.spec.name, []).append(
+                        (sname, [shard.meta.nodes[n].name
+                                 for n in job.node_ids]))
+    by_gang = {}
+    for mname, where in members.items():
+        gname, part = mname.split("@")
+        check(len(where) == 1,
+              f"{label}: member {mname} placed {len(where)} times")
+        by_gang.setdefault(gname, {})[part] = where[0]
+    check(len(by_gang) == FED_GANGS,
+          f"{label}: {len(by_gang)} gangs placed of {FED_GANGS}")
+    leased = [set(v) for v in leases.values()]
+    for gname, parts in by_gang.items():
+        check(set(parts) == set(gang_parts)
+              and {sh for sh, _n in parts.values()} == {"east", "west"},
+              f"{label}: {gname} is not on both shards: {parts}")
+        for part, (_sh, nodes) in parts.items():
+            check(any(set(nodes) <= s for s in leased),
+                  f"{label}: {gname}@{part} on {nodes}, not a lease's")
+    for shard in fc.shards.values():
+        check(not shard.fed.leases,
+              f"{label}: leases left on {shard.name}: {shard.fed.leases}")
+        check_ledger(shard.scheduler, f"{label} {shard.name} gangs",
+                     resident=False)
+    rep["crash_drill"] = crash
+    note(f"{FED_GANGS} gangs committed in {rounds} arbiter steps "
+         f"({rep['gang_window']['seconds']:.1f}s), each once, whole, on "
+         f"leased nodes of both shards; {len(leases)} leases granted; "
+         f"arbiter {fc.arbiter.stats}")
+    for part in gang_parts:
+        drain_all_but_kept(part, False)
+
+    # the storm goes on: p1 moves east -> west with jobs running and
+    # pending on it
+    now += FED_ROUND_S
+    fc.now = now
+    east, west = fc.shards["east"], fc.shards["west"]
+    for shard in (east, west):
+        with shard.lock:
+            shard.sim.advance_to(now)
+            shard.scheduler.process_status_changes()
+    marks = {}
+    seal = fc.handles["east"].seal
+    flip = fc.coordinator.flip_map
+
+    def timed_seal(*a):
+        marks["seal"] = time.perf_counter()
+        return seal(*a)
+
+    def timed_flip(new_map):
+        marks["flip"] = time.perf_counter()
+        return flip(new_map)
+
+    fc.handles["east"].seal = timed_seal
+    fc.coordinator.flip_map = timed_flip
+    p1 = [j for col in (east.scheduler.pending, east.scheduler.running)
+          for j in col.values() if j.spec.partition == "p1"]
+    running = sum(1 for j in p1 if j.job_id in east.scheduler.running)
+    t1 = time.perf_counter()
+    mig = fc.migrate("p1", "west")
+    mig_s = time.perf_counter() - t1
+    check(mig["committed"] and mig["jobs_imported"] == len(p1)
+          and running > 0 and len(p1) > running,
+          f"{label}: migration {mig} of {len(p1)} ({running} running)")
+    rep["migration"] = dict(mig, seconds=mig_s, running=running,
+                            seal_to_flip_s=marks["flip"] - marks["seal"])
+    check(len(west.meta.nodes) == 3 * per
+          and len(east.meta.nodes) == 2 * per,
+          f"{label}: node axes east {len(east.meta.nodes)}, west "
+          f"{len(west.meta.nodes)}")
+    check(all(not east.meta.nodes[n].alive
+              for n in east.meta.partitions["p1"].node_ids),
+          f"{label}: east's p1 rows are not dead")
+    note(f"p1 moved east -> west: {len(p1)} jobs ({running} running) in "
+         f"{mig_s:.1f}s, seal to flip "
+         f"{rep['migration']['seal_to_flip_s']:.2f}s; west's node axis "
+         f"{2 * per} -> {len(west.meta.nodes)}, east keeps "
+         f"{len(east.meta.nodes)} rows (p1's dead)")
+
+    # the next cycle on each side: west launches greedy_place on the
+    # grown axis (the node rows and the class rows the kernel gets) and
+    # places onto the imported nodes; east on its 5,000 rows never picks
+    # the dead ones
+    now += FED_ROUND_S
+    fc.now = now
+    for name, shard in fc.shards.items():
+        sched = shard.scheduler
+        axes = []
+        solve = sched._immediate_solve
+
+        def spy(avail, total, alive, cost0, batch, max_nodes,
+                resident_ok=False, _solve=solve, _axes=axes):
+            _axes.append((int(avail.shape[0]),
+                          int(batch.class_rows_np.shape[1])))
+            return _solve(avail, total, alive, cost0, batch, max_nodes,
+                          resident_ok=resident_ok)
+
+        sched._immediate_solve = spy
+        t1 = time.perf_counter()
+        started = shard.tick(now)
+        wall = time.perf_counter() - t1
+        del sched._immediate_solve
+        check_ledger(sched, f"{label} {name} after the migration",
+                     resident=False)
+        axis = 3 * per if name == "west" else 2 * per
+        on = sum(sched.meta.nodes[n].name.startswith("east-p1-")
+                 for j in started for n in sched.running[j].node_ids)
+        check(axes and all(a == (axis, axis) for a in axes)
+              and (on > 0 if name == "west" else on == 0),
+              f"{label}: {name} after the migration: kernel axes {axes} "
+              f"(want {axis}), {on} placements on p1's nodes")
+        last = cycle_row(name, sched, 2, started, wall)
+        last.update(node_axis=axis, on_imported=on)
+        note(f"{name} after the migration: placed {len(started)} on a "
+             f"{axis}-row axis ({on} on p1's nodes)")
+    fc.pump_usage(now)
+    audit = fc.ledger_by_name(names + [f"{n}@{p}" for n in by_gang
+                                       for p in gang_parts])
+    check(audit["lost"] == [] and audit["doubled"] == [],
+          f"{label}: lost {audit['lost'][:5]}, doubled "
+          f"{audit['doubled'][:5]}")
+    rep["audit"] = {k: (v if isinstance(v, int) else len(v))
+                    for k, v in audit.items()}
+    launches = sum(r["kernel_launches"] for rows in rep["cycles"].values()
+                   for r in rows)
+    check(g.greedy_place.launches == launches + twin_launches,
+          f"{label}: {g.greedy_place.launches} launches; the shards' rows "
+          f"{launches} + the twins' {twin_launches}")
+    rep["launches_by_shard"] = {n: sum(r["kernel_launches"] for r in rows)
+                                for n, rows in rep["cycles"].items()}
+    rep["remote_usage"] = {n: s.scheduler.global_usage.stats()["remotes"]
+                           for n, s in fc.shards.items()}
+    rep["device_memory"] = sample_device_memory()
+    rep["wall_s"] = time.perf_counter() - t_phase
+    for name in fc.shards:
+        for r in rep["cycles"][name]:
+            print(f"[federation] {name} cycle {r['cycle']}: placed "
+                  f"{r['placed']}, total {r['total_ms']:.0f} ms (prelude "
+                  f"{r['prelude_ms']:.0f}, priority {r['priority_ms']:.0f}, "
+                  f"batch {r['batch_ms']:.0f}, solve {r['solve_ms']:.0f}, "
+                  f"commit {r['commit_ms']:.0f}, dispatch "
+                  f"{r['dispatch_ms']:.0f}), {r['nodes']} nodes, "
+                  f"greedy_place {r['kernel_launches']}", flush=True)
+    note(f"done: launches by shard {rep['launches_by_shard']}, device "
+         f"memory {rep['device_memory']}, every job once by name")
+    return rep, launches
+
+
+def fed_reserve_port():
+    """A socket bound to a free port of 127.0.0.1 with ``SO_REUSEPORT``,
+    which gRPC's server sets too: a shard daemon binds the port while
+    the socket holds it, and no bind to port 0 elsewhere (a daemon of
+    another phase, another run) is given it meanwhile.  The socket never
+    listens, so it takes no connection."""
+    import socket
+
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+    s.bind(("127.0.0.1", 0))
+    return s
+
+
+class FedDaemons:
+    """(b)'s two shard daemons: one ``Federation:`` YAML each (phase 12's
+    cluster; only ``ShardName`` and ``Wal:`` differ), started at once;
+    ``boot_s`` is each one's start to its banner, read by a watcher
+    thread.  Their ports stay reserved until ``kill`` (a restarted shard
+    binds its port again)."""
+
+    def __init__(self):
+        import tempfile
+        import threading
+
+        self.held = {n: fed_reserve_port() for n in FED_LAYOUT}
+        self.ports = {n: s.getsockname()[1] for n, s in self.held.items()}
+        self.addr = {n: f"127.0.0.1:{p}" for n, p in self.ports.items()}
+        self.tmps = {n: tempfile.mkdtemp(prefix=f"crane-fed-{n}-")
+                     for n in self.ports}
+        fed_yaml = ["Federation:", "  ShardName: {name}", "  Limits:",
+                    f"    MaxJobsPerUser: {FED_MAX_JOBS}",
+                    f"    MaxSubmitJobsPerUser: {FED_MAX_SUBMIT}",
+                    f"    PublishSlack: {FED_SLACK}", "  Shards:"]
+        for name, parts in FED_LAYOUT.items():
+            fed_yaml += [f"    - name: {name}",
+                         f"      partitions: [{', '.join(parts)}]",
+                         f"      address: {self.addr[name]}"]
+        for name in self.ports:
+            self.rng, _ = daemon_config(
+                f"{self.tmps[name]}/ctld.yaml", self.tmps[name],
+                extra_yaml=[line.format(name=name) for line in fed_yaml])
+        self.procs = {}
+        self.boot_s = {}
+        self._watchers = []
+        for name in self.ports:
+            self.start(name, name)
+            w = threading.Thread(target=self._watch, args=(name,))
+            w.start()
+            self._watchers.append(w)
+
+    def _watch(self, tag):
+        try:
+            self.boot_s[tag] = self.procs[tag].banner()[1]
+        except RuntimeError as exc:
+            self.boot_s[tag] = exc
+
+    def start(self, name, tag):
+        p = DaemonProc(self.tmps[name], tag,
+                       f"{self.tmps[name]}/ctld.yaml", listen=self.addr[name])
+        self.procs[tag] = p
+        return p
+
+    def booted(self):
+        """Both banners seen; returns each one's seconds to it."""
+        for w in self._watchers:
+            w.join()
+        for tag, s in self.boot_s.items():
+            if isinstance(s, BaseException):
+                raise s
+        return dict(self.boot_s)
+
+    def kill(self):
+        for p in self.procs.values():
+            p.kill()
+        for s in self.held.values():
+            s.close()
+
+
+def phase_federation_daemons():
+    """(b): two ``ctld_main --sim`` shards (a ``FedDaemons``) on the card;
+    returns the report and greedy_place's launches in both daemons'
+    cycles (their trace rows).  Kills every daemon it ran."""
+    import signal
+
+    from cranesched_tpu_torch.fed.query import FederatedClient
+    from cranesched_tpu_torch.obs.fedobs import cluster_doc
+    from cranesched_tpu_torch.rpc import CtldClient, crane_pb2 as pb
+
+    label = "federation-daemons"
+    d = FedDaemons()
+    addr, procs, rng = d.addr, d.procs, d.rng
+    out = {"jobs": FED_DAEMON_JOBS, "limits": {
+        "MaxJobsPerUser": FED_MAX_JOBS, "MaxSubmitJobsPerUser":
+        FED_MAX_SUBMIT, "PublishSlack": FED_SLACK}}
+    clients = []
+    t_phase = time.perf_counter()
+
+    def note(what):
+        print(f"[federation:daemons] {time.perf_counter() - t_phase:.1f}s "
+              f"{what}", flush=True)
+
+    def rows(client):
+        return [r for r in json.loads(client.query_stats().json)
+                ["cycle_trace"] if r.get("solver") != "skip"]
+
+    def wait(pred, what):
+        deadline = time.time() + FED_WAIT_S
+        while not pred():
+            check(time.time() < deadline,
+                  f"{label}: {what} not within {FED_WAIT_S:.0f}s; logs "
+                  + " | ".join(f"{t}: {p.text('err')[-600:]}"
+                               for t, p in procs.items()))
+            time.sleep(0.2)
+
+    def usage(client):
+        # draw_specs name no user: the wire's default, "user"
+        doc = json.loads(client.fetch_usage().payload)
+        return doc["user"].get("user", {"jobs": 0, "submit_jobs": 0})
+
+    try:
+        east, west = procs["east"], procs["west"]
+        specs = draw_specs(rng, FED_DAEMON_JOBS)
+        for i, s in enumerate(specs):
+            s.name = f"d{i:05d}"
+            s.time_limit, s.sim_runtime = 86400, 1e6
+        out["boot_s"] = d.booted()
+        for p, n in ((east, "east"), (west, "west")):
+            err = p.text("err")
+            check(f"federation shard '{n}': 2 shards, map epoch 0, global "
+                  "limits on" in err, f"{label}: {n} boot log {err[-800:]}")
+        ce = CtldClient(addr["east"], timeout=600.0)
+        cw = CtldClient(addr["west"], timeout=600.0)
+        clients += [ce, cw]
+        note(f"both shards up: {out['boot_s']}")
+
+        # the lease plane over the wire, on west, before the storm
+        res = pb.ResourceSpec(cpu=4.0, mem_bytes=8 << 30)
+        lease = cw.lease_nodes("smoke-l1", "p2", 2, res=res, ttl=600.0)
+        check(lease.ok and len(lease.node_names) == 2,
+              f"{label}: LeaseNodes {lease}")
+        conf = cw.confirm_gang(
+            "smoke-l1", "smoke-g", pb.JobSpec(
+                name="smoke-g@p2", user="gang", partition="p2",
+                node_num=2, res=res, time_limit=86400, sim_runtime=1e6),
+            node_names=list(lease.node_names),
+            fencing_epoch=lease.fencing_epoch)
+        check(conf.ok and conf.job_id > 0, f"{label}: ConfirmGang {conf}")
+        lease2 = cw.lease_nodes("smoke-l2", "p3", 1, res=res, ttl=600.0)
+        rel = cw.release_lease("smoke-l2")
+        again = cw.release_lease("smoke-l2")
+        check(lease2.ok and rel.ok and not again.ok,
+              f"{label}: the release round trip {lease2} {rel} {again}")
+        gang = cw.query_jobs(job_ids=[conf.job_id]).jobs[0]
+        check(gang.status == "Running"
+              and sorted(gang.node_names) == sorted(lease.node_names),
+              f"{label}: the confirmed member {gang}")
+        out["lease_round_trip"] = {"nodes": list(lease.node_names),
+                                   "job_id": conf.job_id,
+                                   "epoch": lease.fencing_epoch}
+
+        # the storm: every spec to east, west's share forwarded one hop
+        admitted, refused, forwarded, samples = {}, 0, 0, []
+        t0 = time.perf_counter()
+        for lo in range(0, len(specs), WIRE_CHUNK):
+            chunk = specs[lo:lo + WIRE_CHUNK]
+            reply = ce.submit_many(chunk)
+            for s, r in zip(chunk, reply.replies):
+                owner = "east" if s.partition in FED_LAYOUT["east"] \
+                    else "west"
+                check(r.shard == owner, f"{label}: {s.name} ({s.partition})"
+                                        f" answered by {r.shard!r}: "
+                                        f"{r.error!r}")
+                if owner == "west":
+                    forwarded += 1
+                    check(r.redirect_address == addr["west"],
+                          f"{label}: redirect hint {r.redirect_address!r}")
+                if r.job_id:
+                    admitted[s.name] = (owner, r.job_id)
+                else:
+                    refused += 1
+            ue, uw = usage(ce), usage(cw)
+            samples.append((ue["submit_jobs"] + uw["submit_jobs"],
+                            ue["jobs"] + uw["jobs"]))
+        dt = time.perf_counter() - t0
+        out["submit"] = {"seconds": dt, "admitted": len(admitted),
+                         "refused": refused, "forwarded": forwarded,
+                         "per_s": len(specs) / dt}
+        check(refused > 0 and 0 < len(admitted) <= FED_MAX_SUBMIT,
+              f"{label}: the submit gate {out['submit']}")
+        note(f"{len(specs)} specs to east in {dt:.1f}s: {len(admitted)} "
+             f"admitted, {refused} refused by the global gate, {forwarded}"
+             " forwarded to west with its redirect hint")
+
+        # the usage gossip converges; the limits hold at every sample
+        want = {n: sum(1 for o, _j in admitted.values() if o == n)
+                for n in addr}
+        wait(lambda: (usage(ce)["submit_jobs"], usage(cw)["submit_jobs"])
+             == (want["east"], want["west"]), "the usage counts")
+        wait(lambda: any(r["kernel_launches"] >= 1 for r in rows(ce))
+             and any(r["kernel_launches"] >= 1 for r in rows(cw)),
+             "greedy_place in a cycle of each shard")
+        for _ in range(5):
+            ue, uw = usage(ce), usage(cw)
+            samples.append((ue["submit_jobs"] + uw["submit_jobs"],
+                            ue["jobs"] + uw["jobs"]))
+            time.sleep(1.0)
+        check(all(s <= FED_MAX_SUBMIT and r <= FED_MAX_JOBS
+                  for s, r in samples),
+              f"{label}: a global limit exceeded: {samples}")
+        check(max(r for _s, r in samples) > 0,
+              f"{label}: nothing ran: {samples}")
+        stats = {n: json.loads(c.query_stats().json)["fed"]
+                 for n, c in (("east", ce), ("west", cw))}
+        check(stats["east"]["usage"]["remotes"] == ["west"]
+              and stats["west"]["usage"]["remotes"] == ["east"],
+              f"{label}: the usage remotes {stats}")
+        out["usage"] = {"samples": samples[-6:], "max_running": max(
+            r for _s, r in samples), "denied": {
+            n: s["usage"]["denied"] for n, s in stats.items()}}
+
+        # the fan-out with a staleness bound
+        fanc = FederatedClient.connect(addr["east"], timeout=600.0)
+        check(fanc is not None, f"{label}: no federation learned")
+        try:
+            slices = {n: len(r.jobs) for n, r in
+                      fanc.jobs(max_staleness=5.0)}
+            epochs = fanc.map_epochs()
+            doc = cluster_doc(fanc.stats(max_staleness=5.0),
+                              max_staleness=5.0)
+        finally:
+            fanc.close()
+        check(slices == {"east": want["east"], "west": want["west"] + 1}
+              and epochs == {"east": 0, "west": 0}
+              and sorted(doc["shards"]) == ["east", "west"]
+              and not doc["errors"],
+              f"{label}: fan-out {slices} {epochs} {doc['errors']}")
+        out["fanout"] = {"jobs": slices, "map_epochs": epochs,
+                         "staleness_s": {n: d["staleness_s"] for n, d in
+                                         doc["shards"].items()}}
+
+        # MigratePartition of p1 east -> west over the wire
+        in_p1 = {s.name for s in specs if s.partition == "p1"}
+        p1 = [n for n in admitted if n in in_p1]
+        t0 = time.perf_counter()
+        mig = ce.migrate_partition("p1", "west")
+        out["migration"] = {"seconds": time.perf_counter() - t0,
+                            "jobs": mig.jobs_moved, "mid": mig.mid,
+                            "map_epoch": mig.map_epoch}
+        check(mig.ok and mig.jobs_moved == len(p1) and mig.map_epoch == 1
+              and cw.query_shard_map().map_epoch == 1,
+              f"{label}: MigratePartition {mig} of {len(p1)}")
+        late = ce.submit(pb.JobSpec(name="late", partition="p1",
+                                    res=res, sim_runtime=1e6,
+                                    time_limit=86400))
+        check(late.shard == "west" and late.map_epoch == 1,
+              f"{label}: a p1 submit to east after the flip {late}")
+        note(f"p1 migrated east -> west over MigratePartition: "
+             f"{mig.jobs_moved} jobs in {out['migration']['seconds']:.1f}s, "
+             f"map epoch 1 on both")
+        launches = {"east": sum(r["kernel_launches"] for r in rows(ce))}
+
+        # SIGKILL west and restart it from its WAL (and snapshot)
+        names_before = {j.name for c in (ce, cw)
+                        for j in c.query_jobs(include_history=True).jobs}
+        launches["west_before_kill"] = sum(r["kernel_launches"]
+                                           for r in rows(cw))
+        cw.close()
+        clients.remove(cw)
+        west.proc.send_signal(signal.SIGKILL)
+        west.proc.wait(timeout=60)
+        west2 = d.start("west", "west2")
+        out["restart_to_banner_s"] = west2.banner()[1]
+        cw = CtldClient(addr["west"], timeout=600.0)
+        clients.append(cw)
+        q = cw.migrate_partition("", "", phase="query", mid=mig.mid)
+        check(q.ok and q.adopted and q.jobs_moved == mig.jobs_moved,
+              f"{label}: the restarted dest's import {q}")
+        jobs = [j for c in (ce, cw)
+                for j in c.query_jobs(include_history=True).jobs]
+        by_name = {}
+        for j in jobs:
+            by_name[j.name] = by_name.get(j.name, 0) + 1
+        twice = [n for n, k in by_name.items() if k > 1]
+        missing = sorted(set(admitted) - set(by_name))
+        check(not twice and not missing and set(by_name) == names_before,
+              f"{label}: after the restart {len(twice)} twice "
+              f"({twice[:5]}), {len(missing)} missing ({missing[:5]})")
+        west_p1 = sum(1 for j in cw.query_jobs(partition="p1").jobs)
+        check(west_p1 == len(p1) + (1 if late.job_id else 0),
+              f"{label}: west holds {west_p1} p1 jobs after the restart")
+        wait(lambda: any(r["kernel_launches"] >= 1 for r in rows(cw)),
+             "greedy_place in the restarted west's cycles")
+        launches["west"] = launches.pop("west_before_kill") + sum(
+            r["kernel_launches"] for r in rows(cw))
+        devices = {r["device"] for c in (ce, cw) for r in rows(c)}
+        check(devices == {DEVICE}, f"{label}: cycle devices {devices}")
+        out["launches_by_shard"] = launches
+        note(f"west SIGKILLed and restarted in "
+             f"{out['restart_to_banner_s']:.1f}s: the imported partition "
+             f"back ({west_p1} p1 jobs), every one of {len(by_name)} jobs "
+             f"once by name; greedy_place {launches}")
+        for c in clients:
+            c.close()
+        clients.clear()
+        out["stop_s"] = {"east": east.stop(), "west": west2.stop()}
+    finally:
+        for c in clients:
+            c.close()
+        d.kill()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out, launches["east"] + launches["west"]
 
 
 def main() -> int:
     try:
         return run()
     finally:
+        import gc
+        from multiprocessing import resource_tracker, util
+
         if _pool is not None:
             _pool.shutdown(wait=True, cancel_futures=True)
-            # the pool's resource tracker would otherwise end after this
-            # process, with no parent left to reap it
-            from multiprocessing import resource_tracker
-
-            resource_tracker._resource_tracker._stop()
-        left = stop_marked()
+        # multiprocessing's exit handler runs now, while the pools'
+        # resource tracker lives: it unlinks and unregisters every
+        # semaphore the pools made, so that none is left to relaunch a
+        # tracker at interpreter exit.  Then the tracker is stopped and
+        # reaped here: one that ended after this process would have no
+        # parent left to reap it.
+        gc.collect()
+        util._exit_function()
+        resource_tracker._resource_tracker._stop()
+        left = stop_marked(trackers=True)
         if left:
             print(f"[exit] stopped {len(left)} processes this run left: "
                   f"{left[:20]}", file=sys.stderr, flush=True)
@@ -4428,10 +5294,10 @@ def run() -> int:
     native_rep = timed("native", phase_native, twin)
     native_rep["cuda_solve_ms"] = obs["immediate"]["cold"]["solve_ms"]
 
-    # 12. the controller daemon over gRPC: the service in tick mode
-    # against an in-process twin, then the daemon with a restart
-    controller, rpc_paths = timed("controller", phase_controller)
-    paths.update(rpc_paths)
+    # 12. the controller daemon over gRPC: (a) the service in tick mode
+    # against an in-process twin here; (b) the daemon with a restart
+    # runs beside phase 16 (below)
+    service, paths["rpc_ticks"] = timed("controller", phase_service)
 
     # 13. the CPU checks the phases left to the worker processes
     t0 = time.perf_counter()
@@ -4446,13 +5312,46 @@ def run() -> int:
     # supervisors and jobs are real processes on this host
     node_plane, paths["node_plane_cycles"] = timed(
         "node-plane", phase_node_plane,
-        controller["service"]["ticks"][-1]["solve_head_ms"])
+        service["ticks"][-1]["solve_head_ms"])
 
-    # 15. scale-out and failover: the sharded cycle against phase 11's
-    # twin, the sharded, multi-process, speculative and blocked solves,
-    # and a hot standby's promotion on the card
-    scaleout, paths["failover_cycles"] = timed("scaleout", phase_scaleout,
-                                               twin)
+    # 15. scale-out: the sharded, multi-process, speculative and blocked
+    # solves, and the sharded cycle against phase 11's twin; (e), a hot
+    # standby's promotion on the card, runs beside phase 16 (below)
+    scaleout = timed("scaleout", lambda: {
+        "solves": phase_scaleout_solves(),
+        "sharded_cycle": sharded_cycle(twin)})
+
+    # 16. federation: (a) two shards in one process on the card (the
+    # arbiter, the usage gossip, a crash drill and a live migration);
+    # beside it, each in a process of its own (their daemons are
+    # processes too, and their clients then share no interpreter lock
+    # with (a)): (b) two shard daemons over gRPC, phase 12's daemon leg
+    # and phase 15's failover drill
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    side = ProcessPoolExecutor(
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        fed_b_f = side.submit(phase_federation_daemons)
+        daemon_f = side.submit(phase_daemon)
+        failover_f = side.submit(failover_drill)
+        fed_a, paths["federation"] = timed("federation", phase_federation)
+        t0 = time.perf_counter()
+        (fed_b, paths["federation_daemons"]), daemon, failover = (
+            fed_b_f.result(), daemon_f.result(), failover_f.result())
+        print(f"[phase] beside the federation: its shard daemons, the "
+              f"daemon leg and the failover drill, waited "
+              f"{time.perf_counter() - t0:.1f}s after it", flush=True)
+    finally:
+        side.shutdown(wait=True, cancel_futures=True)
+    fed = {"in_process": fed_a, "daemons": fed_b}
+    head_stretch(daemon, service["ticks"][-1]["solve_head_ms"])
+    controller = {"service": service, "daemon": daemon,
+                  "transport": "grpc over 127.0.0.1"}
+    paths["daemon_cycles"] = daemon["launches"]
+    scaleout["failover"] = failover
+    paths["failover_cycles"] = failover["launches"]
     launches = sum(paths.values())
     for r in (kres["stream"], kres["serial"]):
         r["max_abs_err"], r["plain_s"] = results[r["check"]]
@@ -4522,6 +5421,7 @@ def run() -> int:
     print(json.dumps({"controller": controller}), flush=True)
     print(json.dumps({"node_plane": node_plane}), flush=True)
     print(json.dumps({"scaleout": scaleout}), flush=True)
+    print(json.dumps({"federation": fed}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -53,8 +53,11 @@ SLOs, the flight recorder, the ``torch.profiler`` capture window and
 
 Semantics are the JAX package's, bit for bit, under every solver name,
 ``"sharded"`` included (the node-axis-sharded solve over a device mesh,
-``parallel/sharded.py``).  Federation (ROADMAP A14) is left out: ``fed``
-and ``global_usage`` stay None, as on a single JAX controller.
+``parallel/sharded.py``).  A federation shard carries the JAX package's
+hooks at its places: ``fed`` (``fed/shard.py``'s lease and migration
+plane), ``global_usage`` (``fed/usage.py``'s cluster-wide limits and
+fair-share input), ``sealed_partitions`` and ``shard_name``; with
+``fed`` and ``global_usage`` None every cycle is a single controller's.
 
 The cycle is an explicit ``schedule_cycle(now)`` call with virtual time;
 ``cycle_phases`` exposes it as a generator whose yielded closures (the
@@ -504,10 +507,19 @@ class JobScheduler:
         self.accounts = accounts
         self.account_meta = (AccountMetaContainer(meta.layout)
                              if accounts is not None else None)
-        # cluster-wide accounting and the federation plane (ROADMAP.md
-        # A14): None on a single controller, as in the JAX package, so
-        # the server's ``is not None`` gates read the same
+        # cluster-wide accounting (fed/usage.py UsageBook): conservative
+        # global MaxJobs/MaxSubmitJobs gate + fair-share service input.
+        # None = per-shard limits only (single-controller behavior)
         self.global_usage = None
+        # live partition migration (fed/rebalance.py): a sealed
+        # partition stops admitting — its jobs are mid-handoff to
+        # another shard and a new local submit would be stranded
+        self.sealed_partitions: set[str] = set()
+        # federated control plane (fed/): this controller's shard name
+        # ("" outside a federation) and the lease plane that
+        # fed.shard.FedShardPlane grafts on — None for a single
+        # controller, so every fed hook is a cheap attribute check
+        self.shard_name = ""
         self.fed = None
         self.licenses = LicenseManager()
         self.submit_hook = submit_hook
@@ -545,6 +557,9 @@ class JobScheduler:
         self._noop_fp: tuple | None = None
         self._noop_edge: float = float("inf")
         self._cycle_fp0: tuple | None = None
+        # the usage gate's denial count at the cycle's start: a cycle in
+        # which it refused a candidate never arms the no-op skip
+        self._cycle_usage_denied0: int = 0
         # PendingTable rows aligned with the in-flight cycle's
         # candidates/ordered lists (the vectorized gathers)
         self._cand_rows: np.ndarray | None = None
@@ -617,7 +632,8 @@ class JobScheduler:
         self._cycle_launch_base = greedy_place.launches
         self.profiler_window = introspect.ProfilerWindow(
             event_sink=lambda type, sev, detail="": self.events.emit(
-                type, sev, detail=detail))
+                type, sev, detail=detail),
+            namespace=lambda: self.shard_name)
         # stall forensics (obs/flight.py): the phase ring the cycle
         # stamps, and the stall sentry a server loop arms per cycle
         self.flight = FlightRecorder(
@@ -723,11 +739,20 @@ class JobScheduler:
             self._alloc_only.add(job_id)
         self._run_epoch += 1
         _MET_RUNNING.set(len(self.running))
+        if self.global_usage is not None:
+            self.global_usage.note_run(job.spec.user, job.spec.account, 1)
+            if job.global_run_reserved:
+                # admission's held slot becomes the real running count
+                self.global_usage.unreserve_run(job.spec.user,
+                                                job.spec.account)
+                job.global_run_reserved = False
 
     def _on_running_del(self, job_id: int, job: Job) -> None:
         self._alloc_only.discard(job_id)
         self._run_epoch += 1
         _MET_RUNNING.set(len(self.running))
+        if self.global_usage is not None:
+            self.global_usage.note_run(job.spec.user, job.spec.account, -1)
 
     @staticmethod
     def _dep_cols(job: Job) -> tuple[float, bool]:
@@ -804,6 +829,13 @@ class JobScheduler:
         if not self.config.incremental:
             return
         if self.config.preempt_mode != "off" and self.accounts is not None:
+            return
+        if (self.global_usage is not None
+                and self.global_usage.denied
+                != self._cycle_usage_denied0):
+            # the cluster-wide usage gate refused a candidate this
+            # cycle; its answer depends on gossip state (publish
+            # throttle, peer summaries) that no epoch tracks
             return
         fp = self._cycle_fp0
         if fp is None or self._cycle_fingerprint() != fp:
@@ -914,6 +946,8 @@ class JobScheduler:
         part = self.meta.partitions.get(spec.partition)
         if part is None or not part.account_allowed(spec.account):
             return 0
+        if spec.partition in self.sealed_partitions:
+            return 0  # mid-migration: the successor map owns it now
         # gangs beyond the configured bound (or the partition size) can
         # never be placed — reject at submit
         if not (1 <= spec.node_num
@@ -963,6 +997,15 @@ class JobScheduler:
                 if err:
                     return 0
                 qos_name, qos_priority = qos.name, qos.priority
+        if self.global_usage is not None:
+            # federation-wide MaxSubmitJobs (fed/usage.py): conservative
+            # under bounded staleness — deny early, never overshoot
+            if self.global_usage.check_submit(spec.user, spec.account):
+                if self.account_meta is not None and qos_name:
+                    self.account_meta.free_submit(
+                        spec.user, spec.account, qos_name)
+                return 0
+            self.global_usage.note_submit(spec.user, spec.account)
 
         job_id = self._next_job_id
         self._next_job_id += 1
@@ -1448,6 +1491,11 @@ class JobScheduler:
         recorded on the job so the free stays symmetric even if the QoS
         is deleted and re-created while the job runs."""
         job.run_usage_taken = False
+        gu = self.global_usage
+        if gu is not None and gu.check_run(job.spec.user,
+                                           job.spec.account):
+            # federation-wide MaxJobs: the job stays pending
+            return False
         if self.account_meta is not None and job.qos_name:
             qos = self.accounts.qos.get(job.qos_name)
             if qos is not None:
@@ -1456,6 +1504,13 @@ class JobScheduler:
                 if err:
                     return False
                 job.run_usage_taken = True
+        if gu is not None:
+            # hold the slot now: batch commits check every candidate
+            # before any lands in the running dict, so later same-cycle
+            # checks must see this admission (the dict hook converts
+            # the reservation into the real count)
+            gu.reserve_run(job.spec.user, job.spec.account)
+            job.global_run_reserved = True
         return True
 
     def _free_run_limits(self, job: Job) -> None:
@@ -1463,6 +1518,10 @@ class JobScheduler:
             self.account_meta.free_run(job.spec.user, job.spec.account,
                                        job.qos_name, job.spec)
             job.run_usage_taken = False
+        if self.global_usage is not None and job.global_run_reserved:
+            self.global_usage.unreserve_run(job.spec.user,
+                                            job.spec.account)
+            job.global_run_reserved = False
 
     def _effective_end(self, job: Job, now: float) -> float:
         """Expected end with suspended time credited back."""
@@ -1528,6 +1587,9 @@ class JobScheduler:
                 and job.array_parent_id is None):
             self.account_meta.free_submit(job.spec.user, job.spec.account,
                                           job.qos_name)
+        if self.global_usage is not None and job.array_parent_id is None:
+            self.global_usage.note_release_submit(job.spec.user,
+                                                  job.spec.account)
         self.history[job.job_id] = job
         if self.archive is not None:
             # archive before the WAL tombstone: once both exist the job
@@ -2159,6 +2221,9 @@ class JobScheduler:
             return self._skip_cycle(t0, now, "fingerprint")
         self._cycle_fp0 = fp
         self._noop_fp = None
+        self._cycle_usage_denied0 = (self.global_usage.denied
+                                     if self.global_usage is not None
+                                     else 0)
 
         self.stats["cycles"] += 1
         _MET_CYCLES.inc()
@@ -2862,9 +2927,26 @@ class JobScheduler:
             cpus=r_cols[3], mem=r_cols[4], account=r_cols[5],
             run_time=torch.from_numpy(run_time).to(dev), valid=r_valid)
 
+        extra_service = None
+        if self.global_usage is not None:
+            remote = self.global_usage.remote_account_jobs()
+            if remote:
+                # cluster-wide fair-share: remote running-job counts per
+                # account feed the service sum (fed/usage.py); accounts
+                # the gossip names but this shard has never seen get no
+                # dense index yet — they have no local jobs to sort, so
+                # their remote burn cannot change this shard's order
+                es = np.zeros(num_accounts, np.float32)
+                for acct, jobs in remote.items():
+                    idx = self._account_index.get(acct)
+                    if idx is not None and idx < num_accounts:
+                        es[idx] = float(jobs)
+                if es.any():
+                    extra_service = torch.from_numpy(es).to(dev)
         pri_t = multifactor_priority(pending, running,
                                      self.config.priority_weights,
-                                     num_accounts)
+                                     num_accounts,
+                                     extra_service=extra_service)
         order = priority_order(pri_t).cpu().numpy()
         pri = pri_t.cpu().numpy()
         for job, p in zip(candidates, pri):
@@ -3574,6 +3656,13 @@ class JobScheduler:
                     and job.array_parent_id is None):
                 self.account_meta.restore_submit(
                     job.spec.user, job.spec.account, job.qos_name)
+            if not job.status.is_terminal and (
+                    self.global_usage is not None
+                    and job.array_parent_id is None):
+                # restore without re-checking: the slot was legitimately
+                # admitted before the crash (fed/usage.py note_submit)
+                self.global_usage.note_submit(job.spec.user,
+                                              job.spec.account)
             if job.status.is_terminal:
                 self.history[job_id] = job
                 if self.archive is not None and job_id not in self.archive:

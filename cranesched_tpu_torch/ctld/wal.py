@@ -477,7 +477,7 @@ class WriteAheadLog:
         record creates a job; this is what makes a shard crash mid-gang
         safe against double placement."""
         state: dict[str, tuple[str, dict]] = {}
-        for rec in WriteAheadLog._iter_records(path):
+        for rec in WriteAheadLog._iter_records(path, fed_only=True):
             if after_seq and rec.get("seq", 0) <= after_seq:
                 continue
             fed = rec.get("fed")
@@ -496,7 +496,7 @@ class WriteAheadLog:
         record's job_ids — recovery needs them to drop migrated-away
         jobs the ordinary job replay just resurrected."""
         state: dict[str, dict] = {}
-        for rec in WriteAheadLog._iter_records(path):
+        for rec in WriteAheadLog._iter_records(path, fed_only=True):
             fed = rec.get("fed")
             if fed is None or "mid" not in fed:
                 continue
@@ -509,14 +509,19 @@ class WriteAheadLog:
         return state
 
     @staticmethod
-    def _iter_records(path: str):
+    def _iter_records(path: str, fed_only: bool = False):
+        """Every record of the sealed segments and the active file, in
+        order.  ``fed_only`` skips, without decoding them, the lines that
+        cannot hold a federation record (no ``"fed"`` token): the fed
+        replays then read a log of 100,000 job records in a fraction of
+        the time a full decode takes, with the same result."""
         for f in _segment_files(path) + [path]:
             if not os.path.exists(f):
                 continue
             with open(f, encoding="utf-8") as fh:
                 for line in fh:
                     line = line.strip()
-                    if not line:
+                    if not line or (fed_only and '"fed"' not in line):
                         continue
                     try:
                         yield json.loads(line)

@@ -22,7 +22,13 @@ processes register over gRPC (``CranedRegister``), and the dispatcher
 (``rpc/dispatcher.py``) pushes each placement to them.  ``--sim``
 attaches the in-process simulated node plane instead (every configured
 node is immediately alive and runs jobs on the virtual completion
-queue).  A ``Federation:`` block is refused naming ROADMAP.md A14.
+queue).
+
+A ``Federation:`` block makes the daemon one shard of a federation
+(``fed/``): its lease and migration plane and, with ``Limits:``, the
+cluster-wide usage book attach before recovery; the server forwards
+misrouted submits to their owner and pulls its peers' usage.  Every
+shard runs its own scheduler on its own card (or on the device named).
 
 ``--ha-standby --ha-peer ADDR`` starts a hot standby of the leader at
 ADDR: it takes the card like a leader, replicates the leader's snapshot
@@ -109,12 +115,8 @@ def main(argv=None) -> int:
     from cranesched_tpu_torch.rpc.server import serve
     from cranesched_tpu_torch.utils.config import load_config
 
-    try:
-        cfg = load_config(args.config)
-        meta, scheduler = cfg.build(device=args.device)
-    except NotImplementedError as exc:
-        print(f"FATAL: {exc}", file=sys.stderr, flush=True)
-        return 2
+    cfg = load_config(args.config)
+    meta, scheduler = cfg.build(device=args.device)
 
     if cfg.acct_store_path and scheduler.accounts is not None:
         print(f"accounting store: {cfg.acct_store_path} "
@@ -131,6 +133,58 @@ def main(argv=None) -> int:
         print(f"history archive: {cfg.archive_path} "
               f"({scheduler.archive.count()} jobs)", file=sys.stderr,
               flush=True)
+
+    # federation plane BEFORE recovery: the replay must filter
+    # committed migrations' jobs and rebuild imported node meta
+    # (fed.prepare_recovery inside recover_from_snapshot), and the
+    # UsageBook must exist before scheduler.recover backfills
+    # note_submit/note_run for boot-restored jobs — a restarted leader
+    # that published zero usage would let every peer's gate overshoot.
+    shard_map = cfg.shard_map()
+    shard_name = cfg.shard_name
+    if shard_map is not None:
+        # leases + live-migration WAL protocol ride on the scheduler
+        # (fed/shard.py self-attaches as .fed), and Federation:
+        # Limits: turns on the cluster-wide UsageBook
+        from cranesched_tpu_torch.fed.shard import FedShardPlane
+        FedShardPlane(scheduler, shard_name)
+        limits = cfg.global_limits()
+        if limits is not None:
+            from cranesched_tpu_torch.fed.usage import (
+                UsageBook,
+                effective_publish_slack,
+            )
+            # PublishSlack = admissions a shard may run ahead of what
+            # its slowest peer CONFIRMED pulling (the conservative
+            # gate subtracts (shards-1)*slack from every global
+            # limit); 8 absorbs a burst of submits inside one gossip
+            # interval.  Clamped so a small global limit stays
+            # satisfiable — unclamped, limit <= (shards-1)*slack
+            # would deny every submit forever.
+            asked = int((cfg.federation.get("Limits") or {})
+                        .get("PublishSlack", 8))
+            n_shards = len(shard_map.shards)
+            slack, asked = effective_publish_slack(
+                limits, n_shards, asked)
+            if slack != asked:
+                print(f"WARNING: PublishSlack={asked} leaves no "
+                      f"admissible headroom under the configured "
+                      f"global limits with {n_shards} shards — "
+                      f"clamped to {slack}",
+                      file=sys.stderr, flush=True)
+            scheduler.global_usage = UsageBook(
+                shard_name, limits,
+                n_shards=n_shards,
+                publish_slack=slack,
+                seq_source=lambda: (scheduler.wal.durable_seq
+                                    if scheduler.wal is not None
+                                    else 0),
+                peers=tuple(sorted(shard_map.shards)))
+        print(f"federation shard {shard_name!r}: "
+              f"{len(shard_map.shards)} shards, map epoch "
+              f"{shard_map.epoch}"
+              + (", global limits on" if limits is not None else ""),
+              file=sys.stderr, flush=True)
 
     # recovery before serving (reference JobScheduler::Init).  A leader
     # takes the WAL-dir lease FIRST: a second ctld pointed at the same
@@ -171,6 +225,20 @@ def main(argv=None) -> int:
         scheduler.wal = WriteAheadLog(cfg.wal_path)
         print(f"leader lease acquired (fencing epoch {epoch})",
               file=sys.stderr, flush=True)
+        fed = getattr(scheduler, "fed", None)
+        if fed is not None:
+            # lease tombstoning + migrated-away node re-death, and any
+            # begin with no commit/abort surfaces unresolved (the RPC
+            # server's resolve loop settles it against the dest)
+            fed.recover(time.time())
+            unresolved = fed.recover_migrations(time.time())
+            if unresolved:
+                mids = ", ".join(r["mid"] for r in unresolved)
+                print(f"WARNING: {len(unresolved)} unresolved "
+                      f"migration(s) [{mids}] — partitions stay "
+                      f"sealed until the destination's has_import "
+                      f"answer settles them",
+                      file=sys.stderr, flush=True)
 
     sim = None
     dispatcher = None
@@ -210,6 +278,7 @@ def main(argv=None) -> int:
                          cycle_interval=args.cycle_interval,
                          dispatcher=dispatcher, auth=auth, tls=tls,
                          metrics_port=metrics_port,
+                         shard_name=shard_name, shard_map=shard_map,
                          standby=args.ha_standby,
                          peer_address=args.ha_peer)
     print(f"cranectld [{cfg.cluster_name}] listening on port {port} "

@@ -309,8 +309,6 @@ class HaFollower(threading.Thread):
                             node.last_ping = now
             # migration history first: drop committed handoffs' jobs,
             # rebuild imported node meta, re-seal in-flight partitions
-            # (inert in the port: ``fed`` is None until federation,
-            # ROADMAP.md A14)
             fed = getattr(s, "fed", None)
             if fed is not None:
                 fed.prepare_recovery(self.wal_path, self._state,

@@ -60,6 +60,12 @@ def capture_snapshot(scheduler, seq: int | None = None) -> dict:
         "jobs": jobs,
         "nodes": nodes,
     }
+    # prune_segments deletes fed_migrate_* records along with the
+    # covered segments — the snapshot must carry the migration state
+    # (imported node meta, replay filter, in-flight begins) itself
+    fed = getattr(scheduler, "fed", None)
+    if fed is not None:
+        doc["fed"] = fed.snapshot_doc()
     return doc
 
 
@@ -138,6 +144,14 @@ def recover_from_snapshot(scheduler, wal_cls, wal_path: str,
         replayed.update(wal_cls.replay(wal_path, after_seq=snap_seq))
     else:
         replayed = wal_cls.replay(wal_path)
+    # migration history rewrites the replay BEFORE recover: committed
+    # handoffs' jobs drop out (they live on the dest), imported
+    # partitions' node meta rebuilds in adoption order, in-flight
+    # begins re-seal.  Requires the plane attached pre-recovery.
+    fed = getattr(scheduler, "fed", None)
+    if fed is not None:
+        fed.prepare_recovery(wal_path, replayed,
+                             snap_fed=(doc or {}).get("fed"))
     if replayed:
         scheduler.recover(replayed, now=now)
     return len(replayed), snap_seq

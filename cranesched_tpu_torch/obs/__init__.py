@@ -19,11 +19,17 @@ torch counterparts where the JAX package reaches JAX):
                     heartbeat protocol, and the build cache's counters.
 - ``introspect.py`` run-time build counts, the card's memory gauges,
                     and the N-cycle ``torch.profiler`` capture window.
-
-The federation-wide merge (``obs/fedobs.py``) comes with federation
-(ROADMAP.md A14).
+- ``fedobs.py``     federation-wide merge: scatter-gather metric
+                    aggregation and the cluster-level SLO engine over
+                    per-shard summaries (exact burn-rate merge).
 """
 
+from cranesched_tpu_torch.obs.fedobs import (  # noqa: F401
+    ClusterSlo,
+    cluster_doc,
+    merge_metric_snapshots,
+    merge_slo_tables,
+)
 from cranesched_tpu_torch.obs.flight import (  # noqa: F401
     FlightRecorder,
     Heartbeat,

@@ -26,11 +26,13 @@ class StreamResult:
 class CtldClient:
     def __init__(self, address: str, timeout: float = 30.0,
                  token: str = "", tls=None,
-                 max_receive_bytes: int | None = None):
+                 max_receive_bytes: int | None = None,
+                 local_subchannels: bool = False):
         self.address = address
         self.timeout = timeout
         self._stub = GrpcStub(address, SERVICE, timeout, token=token,
-                              tls=tls, max_receive_bytes=max_receive_bytes)
+                              tls=tls, max_receive_bytes=max_receive_bytes,
+                              local_subchannels=local_subchannels)
         # kept for tests that introspect the channel
         self._channel = self._stub._channel
 

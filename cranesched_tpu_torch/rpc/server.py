@@ -26,11 +26,15 @@ serves the read surface from its shadow state (``ha/follower.py`` keeps
 it), answers every mutation and every craned RPC ``FAILED_PRECONDITION``
 ("not leader"), runs no cycle, and becomes the leader through
 ``promote_to_leader``.  ``HaStatus``, ``HaFetchSnapshot`` and
-``HaFetchWal`` are the replication surface a standby polls.  The
-federation RPCs abort ``UNIMPLEMENTED`` naming ROADMAP.md A14.  A real
-node plane passes ``dispatcher=`` (``rpc/dispatcher.py``):
-``CranedRegister`` opens its push channel to the craned, and ``stop()``
-closes it.
+``HaFetchWal`` are the replication surface a standby polls.  A federation
+shard (``shard_name=``, ``shard_map=``) forwards a misrouted submit one hop
+to its partition's owner, stamps its name and map epoch on replies, serves
+the arbiter's lease plane (``LeaseNodes``, ``ConfirmGang``,
+``ReleaseLease``), the usage gossip (``FetchUsage``) and live partition
+migration (``MigratePartition``), and pulls its peers' usage and settles
+unresolved migrations on background threads.  A real node plane passes
+``dispatcher=`` (``rpc/dispatcher.py``): ``CranedRegister`` opens its push
+channel to the craned, and ``stop()`` closes it.
 """
 
 from __future__ import annotations
@@ -50,19 +54,15 @@ from cranesched_tpu_torch.rpc import crane_pb2 as pb
 from cranesched_tpu_torch.rpc.consts import SERVICE
 from cranesched_tpu_torch.rpc.convert import (
     job_to_pb,
+    res_from_pb,
     spec_from_pb,
     step_spec_from_pb,
     step_to_pb,
 )
 
-#: RPCs of the JAX package's surface that the port refuses, with the
-#: ROADMAP.md item that brings each
-NOT_PORTED = {
-    "QueryShardMap": "A14", "LeaseNodes": "A14", "ConfirmGang": "A14",
-    "ReleaseLease": "A14", "FetchUsage": "A14", "MigratePartition": "A14",
-}
-_NOT_PORTED_WHAT = {"A14": "federation"}
-
+_MET_FWD = _OBS.counter(
+    "crane_fed_forwards_total",
+    "misrouted submits forwarded to the partition's owning shard")
 _MET_STALE = _OBS.counter(
     "crane_fed_stale_reads_refused_total",
     "follower reads refused for exceeding the caller's max_staleness")
@@ -91,7 +91,8 @@ class CtldServer:
                  cycle_interval: float = 1.0, tick_mode: bool = False,
                  dispatcher=None, auth=None, tls=None,
                  metrics_port: int | None = None,
-                 standby: bool = False, peer_address: str = ""):
+                 standby: bool = False, peer_address: str = "",
+                 shard_name: str = "", shard_map=None):
         self.scheduler = scheduler
         self.sim = sim
         # real node plane: per-node push stubs (wired into the
@@ -116,6 +117,7 @@ class CtldServer:
         self._lock = threading.Lock()
         self._server: grpc.Server | None = None
         self._cycle_thread: threading.Thread | None = None
+        self._usage_thread: threading.Thread | None = None
         self._stop = threading.Event()
         # event-driven cycle wakeup (the reference's
         # m_task_scheduler_thread_ condition variable): submits, status
@@ -132,6 +134,15 @@ class CtldServer:
         self.ha_peer = peer_address  # the other ctld (redirect hint)
         self.ha_follower = None      # set by ctld_main on a standby
         self.failovers = 0
+        # federation (fed/): this ctld's shard identity plus the static
+        # partition -> shard routing table.  A populated map turns on
+        # misrouted-submit forwarding and reply shard stamping; None
+        # keeps the single-controller behavior bit-for-bit.
+        self.shard_name = shard_name or getattr(scheduler,
+                                                "shard_name", "")
+        self.shard_map = shard_map
+        scheduler.shard_name = self.shard_name
+        self._fwd_clients: dict = {}  # address -> CtldClient (forwards)
 
     # ---- authentication helpers ----
 
@@ -224,25 +235,167 @@ class CtldServer:
                     f"spec claims {spec.user})")
         return ""
 
+    def _trusted_forward(self, request) -> bool:
+        """True for a forwarded submit arriving from a known peer shard
+        of this federation.  The identity check already ran at the
+        ingress shard — the shard that forwarded it — and the
+        shard-to-shard hop carries no user credential, so re-running it
+        here would deny every forwarded submit under auth (and
+        double-count the denial metrics without it).  Trust is scoped:
+        a request claiming ``forwarded`` outside a federation, or
+        naming an unknown shard, still gets the full check."""
+        if self.shard_map is None or not request.forwarded:
+            return False
+        peer = request.forwarded_from
+        return bool(peer) and peer != self.shard_name \
+            and self.shard_map.spec(peer) is not None
+
+    def _fed_owner(self, partition: str):
+        """(owner shard, leader address) when ``partition`` belongs to
+        a DIFFERENT shard of the federation, else None — local
+        partitions and unknown ones (the scheduler's own diagnostics
+        handle those) take the normal path."""
+        if self.shard_map is None:
+            return None
+        owner = self.shard_map.shard_for_partition(partition)
+        if not owner or owner == self.shard_name:
+            return None
+        spec = self.shard_map.spec(owner)
+        return owner, (spec.address if spec is not None else "")
+
+    def _map_epoch(self) -> int:
+        """The shard-map epoch this server currently routes by; stamped
+        on submit/shard-map replies so clients detect a live partition
+        migration and re-learn routes instead of redirect-bouncing on a
+        stale map."""
+        return self.shard_map.epoch if self.shard_map is not None else 0
+
+    def _fed_client(self, address: str):
+        cli = self._fwd_clients.get(address)
+        if cli is None:
+            from cranesched_tpu_torch.rpc.client import CtldClient
+            cli = CtldClient(address, tls=self.tls, local_subchannels=True)
+            self._fwd_clients[address] = cli
+        return cli
+
+    def _fed_call(self, address: str, call):
+        """``call(client)`` on the peer shard's cached client.  A call
+        that raises drops that client, so that the next one dials anew:
+        a channel left in gRPC's reconnect backoff by the peer's outage
+        fails every fail-fast call at once, for up to two minutes after
+        the peer is back (ROADMAP C9)."""
+        cli = self._fed_client(address)
+        try:
+            return call(cli)
+        except Exception:
+            if self._fwd_clients.get(address) is cli:
+                self._fwd_clients.pop(address, None)
+            raise
+
+    def _query_dest_import(self, address: str, mid: str,
+                           attempts: int = 3
+                           ) -> tuple[bool, int] | None:
+        """Ask the dest whether it durably adopted handoff ``mid``
+        (``phase="query"`` -> has_import).  Returns (adopted, jobs) on
+        an answer, None when the dest stays unreachable — the ONLY
+        outcome that may leave the begin unresolved; never guess."""
+        for i in range(max(attempts, 1)):
+            try:
+                r = self._fed_call(address, lambda c: c.migrate_partition(
+                    "", "", phase="query", mid=mid))
+                if r.ok:
+                    return bool(r.adopted), int(r.jobs_moved)
+            except Exception:
+                pass
+            if i + 1 < attempts:
+                time.sleep(0.2)
+        return None
+
+    def _forward_submit(self, spec_pb, partition: str, owner: str,
+                        address: str, already_forwarded: bool):
+        """One-hop forward of a misrouted submit to the owning shard.
+        The reply always carries the owner's address as a redirect hint
+        so shard-aware clients (HaCtldClient) learn the route and stop
+        paying the extra hop.  An ``already_forwarded`` request is never
+        re-forwarded: two shards with skewed maps redirect-bounce the
+        client instead of building a forwarding loop."""
+        if already_forwarded or not address:
+            return pb.SubmitJobReply(
+                job_id=0, shard=self.shard_name,
+                redirect_address=address,
+                map_epoch=self._map_epoch(),
+                error=f"partition {partition!r} belongs to shard "
+                      f"{owner!r}")
+        try:
+            # trace context rides the forward: the owner stamps a
+            # fed_forwarded span at (when the hop left, from which
+            # shard) so the job's waterfall shows the boundary crossing
+            reply = self._fed_client(address).submit(
+                spec_pb, forwarded=True, forwarded_at=self._now(),
+                forwarded_from=self.shard_name)
+        except grpc.RpcError as exc:
+            # drop the cached channel: the next misroute redials
+            cli = self._fwd_clients.pop(address, None)
+            if cli is not None:
+                try:
+                    cli.close()
+                except Exception:
+                    pass
+            return pb.SubmitJobReply(
+                job_id=0, shard=self.shard_name,
+                redirect_address=address,
+                map_epoch=self._map_epoch(),
+                error=f"forward to shard {owner!r} failed: "
+                      f"{exc.code().name}")
+        self.scheduler.events.emit(
+            "fed_forward", "info", time=self._now(),
+            job_id=reply.job_id,
+            detail=f"partition={partition} -> shard={owner}")
+        _MET_FWD.inc()
+        return pb.SubmitJobReply(job_id=reply.job_id, error=reply.error,
+                                 shard=owner, redirect_address=address,
+                                 map_epoch=self._map_epoch())
+
     def SubmitBatchJob(self, request, context):
         try:
             spec = spec_from_pb(request.spec)
         except ValueError as exc:
             return pb.SubmitJobReply(job_id=0, error=str(exc))
-        deny = self._check_submit_identity(self._ident(context), spec)
-        if deny:
-            return pb.SubmitJobReply(job_id=0, error=deny)
+        # the identity check runs exactly once, at the INGRESS shard: a
+        # trusted forward was already checked where the client connected
+        if not self._trusted_forward(request):
+            deny = self._check_submit_identity(self._ident(context),
+                                               spec)
+            if deny:
+                return pb.SubmitJobReply(job_id=0, error=deny)
+        owner = self._fed_owner(spec.partition)
+        if owner is not None:
+            return self._forward_submit(request.spec, spec.partition,
+                                        *owner, request.forwarded)
+        now = self._now()
         with self._lock:
-            job_id = self.scheduler.submit(spec, now=self._now())
-        return pb.SubmitJobReply(job_id=job_id,
-                                 error="" if job_id else "rejected")
+            job_id = self.scheduler.submit(spec, now=now)
+            if (request.forwarded and job_id
+                    and self.scheduler.jobtrace is not None):
+                # span the shard hop on the fresh (job_id, 0) timeline:
+                # t = when the forward LEFT the misrouted shard, so the
+                # submit->fed_forwarded segment shows the hop latency
+                # (clocks are the federation's, skew rides as detail)
+                t_fwd = request.forwarded_at or now
+                self.scheduler.jobtrace.stamp(
+                    job_id, 0, "fed_forwarded", t_fwd,
+                    skew=round(now - t_fwd, 6))
+        return pb.SubmitJobReply(
+            job_id=job_id, error="" if job_id else "rejected",
+            shard=self.shard_name, map_epoch=self._map_epoch())
 
     def SubmitBatchJobs(self, request, context):
         now = self._now()
         ident = self._ident(context)
         replies: list = [None] * len(request.specs)
         local = []
-        # parse + check OUTSIDE the lock
+        # parse + route OUTSIDE the lock: forwarding a misrouted spec
+        # is an RPC and must not stall the local scheduler
         for i, spec_pb in enumerate(request.specs):
             try:
                 spec = spec_from_pb(spec_pb)
@@ -252,6 +405,11 @@ class CtldServer:
             deny = self._check_submit_identity(ident, spec)
             if deny:
                 replies[i] = pb.SubmitJobReply(job_id=0, error=deny)
+                continue
+            owner = self._fed_owner(spec.partition)
+            if owner is not None:
+                replies[i] = self._forward_submit(
+                    spec_pb, spec.partition, *owner, False)
                 continue
             local.append((i, spec))
         # chunked insert: batch submit is not atomic (every spec gets
@@ -270,7 +428,8 @@ class CtldServer:
                     job_id = self.scheduler.submit(spec, now=now)
                     replies[i] = pb.SubmitJobReply(
                         job_id=job_id,
-                        error="" if job_id else "rejected")
+                        error="" if job_id else "rejected",
+                        shard=self.shard_name)
         return pb.SubmitJobsReply(replies=replies)
 
     def CancelJob(self, request, context):
@@ -497,7 +656,7 @@ class CtldServer:
             return pb.QueryJobsReply(
                 jobs=[job_to_pb(j, names) for j in jobs],
                 truncated=truncated,
-                durable_seq=self._durable_seq())
+                durable_seq=self._durable_seq(), shard=self.shard_name)
 
     def QueryJobsStream(self, request, context):
         """Server-streaming query (reference Crane.proto:1576-1590):
@@ -539,7 +698,8 @@ class CtldServer:
                     partitions=sorted(node.partitions),
                     running_jobs=len(node.running_jobs)))
             return pb.QueryClusterReply(
-                nodes=out, durable_seq=self._durable_seq())
+                nodes=out, durable_seq=self._durable_seq(),
+                shard=self.shard_name)
 
     def CreateReservation(self, request, context):
         deny = self._deny_admin(self._ident(context))
@@ -680,8 +840,21 @@ class CtldServer:
                 "failovers_total": self.failovers,
                 "peer": self.ha_peer,
             }
+            if self.shard_name or self.shard_map is not None:
+                doc["fed"] = {
+                    "shard": self.shard_name,
+                    "map_epoch": self._map_epoch(),
+                    "shards": (self.shard_map.doc()
+                               if self.shard_map is not None else []),
+                }
+                if self.scheduler.fed is not None:
+                    doc["fed"].update(self.scheduler.fed.stats())
+                if self.scheduler.global_usage is not None:
+                    doc["fed"]["usage"] = \
+                        self.scheduler.global_usage.stats()
             return pb.StatsReply(json=_json.dumps(doc),
-                                 durable_seq=self._durable_seq())
+                                 durable_seq=self._durable_seq(),
+                                 shard=self.shard_name)
 
     def AcctMgr(self, request, context):
         """Accounting CRUD (reference cacctmgr -> AccountManager RPC
@@ -993,7 +1166,8 @@ class CtldServer:
         reply = pb.QueryJobSummaryReply(total=sum(counts.values()),
                                         timeline_json=timeline,
                                         explain_json=explain,
-                                        durable_seq=self._durable_seq())
+                                        durable_seq=self._durable_seq(),
+                                        shard=self.shard_name)
         for status in sorted(counts):
             reply.states.add(status=status, count=counts[status])
         return reply
@@ -1010,13 +1184,277 @@ class CtldServer:
                 since_time=request.since,
                 type=request.type,
                 limit=request.limit)
-        reply = pb.QueryEventsReply(durable_seq=self._durable_seq())
+        reply = pb.QueryEventsReply(durable_seq=self._durable_seq(),
+                                    shard=self.shard_name)
         for r in recs:
             reply.events.add(seq=r["seq"], time=r["time"],
                              type=r["type"], severity=r["severity"],
                              node=r["node"], job_id=r["job_id"],
                              detail=r["detail"])
         return reply
+
+    # ---- federation: shard map + the arbiter's lease plane ----
+
+    def QueryShardMap(self, request, context):
+        """The static partition -> shard routing table, served by every
+        shard (and every follower — the map is config, not state) so
+        clients can learn routes from whichever replica answered."""
+        self._require_authenticated(self._ident(context), context)
+        if self.shard_map is None:
+            return pb.QueryShardMapReply(shard=self.shard_name,
+                                         error="not federated")
+        reply = pb.QueryShardMapReply(shard=self.shard_name,
+                                      map_epoch=self.shard_map.epoch)
+        for doc in self.shard_map.doc():
+            reply.shards.add(name=doc["name"],
+                             partitions=doc["partitions"],
+                             address=doc["address"],
+                             followers=doc["followers"])
+        return reply
+
+    def LeaseNodes(self, request, context):
+        """Phase one of the arbiter's cross-partition gang commit:
+        durably reserve nodes under this shard's fencing epoch."""
+        deny = self._deny_admin(self._ident(context))
+        if deny:
+            return pb.LeaseNodesReply(ok=False, error=deny)
+        fed = self.scheduler.fed
+        if fed is None:
+            return pb.LeaseNodesReply(ok=False,
+                                      error="not a federation shard")
+        req = res_from_pb(request.res).encode(self.scheduler.meta.layout)
+        with self._lock:
+            try:
+                names, epoch, seq = fed.lease_nodes(
+                    request.lease_id, request.partition,
+                    int(request.node_num), req, request.ttl,
+                    self._now())
+            except ValueError as exc:
+                return pb.LeaseNodesReply(ok=False, error=str(exc))
+        return pb.LeaseNodesReply(ok=True, node_names=names,
+                                  fencing_epoch=epoch, durable_seq=seq)
+
+    def ConfirmGang(self, request, context):
+        """Phase two: turn a lease into a RUNNING local gang member in
+        one WAL group (the only record that creates the job)."""
+        deny = self._deny_admin(self._ident(context))
+        if deny:
+            return pb.ConfirmGangReply(ok=False, error=deny)
+        fed = self.scheduler.fed
+        if fed is None:
+            return pb.ConfirmGangReply(ok=False,
+                                       error="not a federation shard")
+        try:
+            spec = spec_from_pb(request.spec)
+        except ValueError as exc:
+            return pb.ConfirmGangReply(ok=False, error=str(exc))
+        with self._lock:
+            try:
+                job_id = fed.confirm_gang(
+                    request.lease_id, request.gang_id, spec,
+                    list(request.node_names), self._now(),
+                    epoch=request.fencing_epoch)
+            except ValueError as exc:
+                return pb.ConfirmGangReply(ok=False, error=str(exc))
+        return pb.ConfirmGangReply(ok=True, job_id=job_id,
+                                   durable_seq=self._durable_seq())
+
+    def ReleaseLease(self, request, context):
+        """Drop an unconfirmed reservation (arbiter abort)."""
+        deny = self._deny_admin(self._ident(context))
+        if deny:
+            return pb.OkReply(ok=False, error=deny)
+        fed = self.scheduler.fed
+        if fed is None:
+            return pb.OkReply(ok=False, error="not a federation shard")
+        with self._lock:
+            ok = fed.release_lease(request.lease_id, self._now())
+        return pb.OkReply(ok=ok, error="" if ok else "no such lease")
+
+    # ---- elastic federation: usage gossip + live migration ----
+
+    def FetchUsage(self, request, context):
+        """This shard's per-user/per-account usage summary, stamped
+        with its WAL watermark (``durable_seq``).  Peers poll this and
+        feed the payload to their own UsageBook.ingest — the gossip
+        transport for cluster-wide MaxJobs / fair-share.  The request
+        names the PULLING shard: serving it is confirmed delivery to
+        that peer, and only the slowest peer's confirmation releases
+        the publish-slack throttle (an anonymous pull — the CLI —
+        acks nobody)."""
+        import json as _json
+        self._require_authenticated(self._ident(context), context)
+        book = self.scheduler.global_usage
+        if book is None:
+            return pb.FetchUsageReply(ok=False, shard=self.shard_name,
+                                      error="no global accounting")
+        with self._lock:
+            doc = book.publish(self._now(), peer=request.shard or "")
+            seq = self._durable_seq()
+        return pb.FetchUsageReply(ok=True, shard=self.shard_name,
+                                  payload=_json.dumps(doc),
+                                  durable_seq=seq)
+
+    def MigratePartition(self, request, context):
+        """Live partition migration (admin-only).  Two phases share the
+        verb:
+
+        * ``phase=""`` — drive the whole handoff.  Must land on the
+          partition's source shard (``cfed migrate`` dials it from the
+          map); runs seal -> export locally, ships the payload to the
+          dest with ``phase="import"``, flips this shard's map, then
+          commits.  An import failure aborts durably and re-opens the
+          partition in place.
+        * ``phase="import"`` — adopt an exported payload: one WAL group
+          creates every job under fresh local ids, then this shard's
+          map flips so it starts routing the partition to itself.
+        * ``phase="query"`` — answer :meth:`has_import` for ``mid``:
+          the source's resolution path keys commit-vs-abort on this
+          after an ambiguous import RPC (timeout/drop) or a crash.
+        """
+        import json as _json
+        deny = self._deny_admin(self._ident(context))
+        if deny:
+            return pb.MigratePartitionReply(ok=False, error=deny)
+        fed = self.scheduler.fed
+        if fed is None or self.shard_map is None:
+            return pb.MigratePartitionReply(
+                ok=False, error="not a federation shard")
+        now = self._now()
+        if request.phase == "query":
+            with self._lock:
+                adopted = fed.has_import(request.mid)
+                jobs = len(fed.imports.get(str(request.mid)) or [])
+            return pb.MigratePartitionReply(
+                ok=True, mid=request.mid, adopted=adopted,
+                jobs_moved=jobs, map_epoch=self._map_epoch())
+        if request.phase == "import":
+            try:
+                payload = _json.loads(request.payload)
+            except _json.JSONDecodeError as exc:
+                return pb.MigratePartitionReply(
+                    ok=False, error=f"bad payload: {exc}")
+            with self._lock:
+                try:
+                    imported, new_nodes = fed.import_partition(payload,
+                                                               now)
+                except ValueError as exc:
+                    return pb.MigratePartitionReply(ok=False,
+                                                    error=str(exc))
+                if self.sim is not None:
+                    # a simulated plane mirrors the adopted meta, as
+                    # fed/sim.py's handle does: craneds for the new
+                    # nodes (a placement there dispatches to them), the
+                    # running jobs re-armed (ROADMAP.md C7)
+                    for nid in new_nodes:
+                        self.sim.craneds.setdefault(nid, SimCraned(nid))
+                    for jid in imported:
+                        job = self.scheduler.running.get(jid)
+                        if job is not None:
+                            self.sim.dispatch(job, job.node_ids)
+                try:
+                    self.shard_map = self.shard_map.with_partition_moved(
+                        payload["partition"], self.shard_name)
+                except ValueError:
+                    pass  # already ours (idempotent re-import)
+            self._cycle_kick.set()
+            return pb.MigratePartitionReply(
+                ok=True, mid=payload.get("mid", ""),
+                jobs_moved=len(imported), map_epoch=self._map_epoch())
+        if request.phase:
+            return pb.MigratePartitionReply(
+                ok=False, error=f"unknown phase {request.phase!r}")
+        partition, dest = request.partition, request.dest_shard
+        owner = self.shard_map.shard_for_partition(partition)
+        if owner != self.shard_name:
+            spec = self.shard_map.spec(owner) if owner else None
+            return pb.MigratePartitionReply(
+                ok=False,
+                error=f"partition {partition!r} belongs to shard "
+                      f"{owner!r}"
+                      + (f" at {spec.address}" if spec is not None
+                         and spec.address else ""))
+        dspec = self.shard_map.spec(dest)
+        if dspec is None or dest == self.shard_name:
+            return pb.MigratePartitionReply(
+                ok=False, error=f"bad destination shard {dest!r}")
+        mid = (f"mig:{partition}:{self.shard_map.epoch}"
+               f":{self.shard_name}->{dest}")
+        with self._lock:
+            try:
+                fed.seal_partition(mid, partition, dest, now)
+                payload = fed.export_partition(mid, partition)
+            except ValueError as exc:
+                return pb.MigratePartitionReply(ok=False, error=str(exc))
+        adopted = None
+        jobs_moved = 0
+        err = ""
+        try:
+            dreply = self._fed_call(
+                dspec.address, lambda c: c.migrate_partition(
+                    partition, dest, phase="import",
+                    payload=_json.dumps(payload), mid=mid))
+            if dreply.ok:
+                adopted = True
+                jobs_moved = int(dreply.jobs_moved)
+            else:
+                # a structured refusal: the dest's two-phase import
+                # validates+mallocs everything BEFORE its first WAL
+                # write, so "not ok" genuinely means nothing adopted
+                adopted = False
+                err = dreply.error
+        except Exception as exc:
+            # the RPC died in flight — AMBIGUOUS.  The dest may have
+            # durably imported (and flipped its map) before the
+            # channel dropped; a blind abort here would leave BOTH
+            # shards owning the jobs.  Ask the dest what it holds.
+            err = str(exc)
+            verdict = self._query_dest_import(dspec.address, mid)
+            if verdict is not None:
+                adopted, jobs_moved = verdict
+        if adopted is False:
+            with self._lock:
+                fed.abort_migration(mid, partition, now)
+            return pb.MigratePartitionReply(
+                ok=False, mid=mid,
+                error=f"dest import failed (aborted): {err}")
+        if adopted is None:
+            # dest unreachable AND adoption unknown: the ONLY safe
+            # move is none.  The partition stays sealed (no local
+            # admits, no duplicate execution either way) and the
+            # resolver loop settles the begin once the dest answers.
+            with self._lock:
+                if not any(r.get("mid") == mid
+                           for r in fed.unresolved_migrations):
+                    fed.unresolved_migrations.append({
+                        "mid": mid, "partition": partition,
+                        "dest": dest,
+                        "job_ids": [e["job"]["job_id"]
+                                    for e in payload.get("jobs", [])]})
+                self.scheduler.events.emit(
+                    "fed_migrate_unresolved", "warning", time=now,
+                    detail=f"mid={mid} part={partition} dest={dest} "
+                           "(import RPC died; partition sealed "
+                           "pending resolution)")
+            return pb.MigratePartitionReply(
+                ok=False, mid=mid,
+                error=f"dest unreachable after import RPC ({err}); "
+                      "partition stays sealed pending resolution")
+        # the dest holds the jobs durably: flip BEFORE commit, so a
+        # crash here still routes the partition to the shard that has
+        # the jobs; recovery resolves the bare begin against the dest
+        with self._lock:
+            self.shard_map = self.shard_map.with_partition_moved(
+                partition, dest)
+            fed.commit_migration(mid, partition, now)
+        self.scheduler.events.emit(
+            "fed_migrate", "info", time=now,
+            detail=f"partition={partition} -> shard={dest} "
+                   f"jobs={jobs_moved} "
+                   f"epoch={self.shard_map.epoch}")
+        return pb.MigratePartitionReply(
+            ok=True, mid=mid, jobs_moved=jobs_moved,
+            map_epoch=self.shard_map.epoch)
 
     def CaptureProfile(self, request, context):
         """Arm an on-demand torch.profiler window spanning the next N
@@ -1114,18 +1552,6 @@ class CtldServer:
                     self.dispatcher.node_registered(node.node_id,
                                                     node.address)
 
-    def _refuse(self, name: str):
-        """Handler of an RPC the port does not serve yet: aborts
-        UNIMPLEMENTED naming the ROADMAP.md item that brings it."""
-        item = NOT_PORTED[name]
-
-        def handler(request, context):
-            context.abort(
-                grpc.StatusCode.UNIMPLEMENTED,
-                f"{name} ({_NOT_PORTED_WHAT[item]}) is not in the port "
-                f"yet (ROADMAP.md {item})")
-        return handler
-
     # ---- lifecycle ----
 
     _RPCS = {
@@ -1203,18 +1629,12 @@ class CtldServer:
             return fn(request, context)
         return handler
 
-    def _handler(self, name: str):
-        if name in NOT_PORTED:
-            return self._refuse(name)
-        fn = getattr(self, name)
-        return fn if name in self._STANDBY_OK else \
-            self._leader_only(name, fn)
-
     def start(self, address: str = "127.0.0.1:0") -> int:
         """Start serving; returns the bound port."""
         handlers = {
             name: grpc.unary_unary_rpc_method_handler(
-                self._handler(name),
+                (getattr(self, name) if name in self._STANDBY_OK
+                 else self._leader_only(name, getattr(self, name))),
                 request_deserializer=req.FromString,
                 response_serializer=reply.SerializeToString)
             for name, (req, reply) in self._RPCS.items()
@@ -1246,7 +1666,109 @@ class CtldServer:
             self._cycle_thread = threading.Thread(
                 target=self._cycle_loop, daemon=True)
             self._cycle_thread.start()
+        if (self.shard_map is not None
+                and self.scheduler.global_usage is not None):
+            self._usage_thread = threading.Thread(
+                target=self._usage_gossip_loop, daemon=True)
+            self._usage_thread.start()
+        if (self.shard_map is not None
+                and self.scheduler.fed is not None):
+            self._resolve_thread = threading.Thread(
+                target=self._fed_resolve_loop, daemon=True)
+            self._resolve_thread.start()
         return port
+
+    def _usage_gossip_loop(self) -> None:
+        """Cluster-wide accounting pump (fed/usage.py): pull every
+        peer's latest summary via FetchUsage and ingest it under the
+        lock.  The request carries OUR shard name — serving it is that
+        peer's confirmed delivery to us, and symmetrically our
+        FetchUsage handler marks our counters delivered per pulling
+        peer.  Only the SLOWEST peer's confirmation releases the
+        publish-slack throttle (UsageBook.unconfirmed), so a peer that
+        cannot fetch for several intervals tightens our own admissions
+        instead of letting global limits overshoot.  A peer outage
+        only ages that peer's summary and withholds its acks; it never
+        blocks this loop or the cycle thread."""
+        import json as _json
+        interval = max(self.cycle_interval, 0.5)
+        while not self._stop.wait(interval):
+            if self.ha_role != "leader":
+                continue
+            book = self.scheduler.global_usage
+            for name, spec in self.shard_map.shards.items():
+                if name == self.shard_name or not spec.address:
+                    continue
+                try:
+                    reply = self._fed_call(
+                        spec.address, lambda c: c.fetch_usage(
+                            shard=self.shard_name))
+                    doc = _json.loads(reply.payload) if reply.ok \
+                        else None
+                except Exception:
+                    continue
+                if doc:
+                    with self._lock:
+                        book.ingest(doc, self._now())
+
+    def _fed_resolve_loop(self) -> None:
+        """Background settlement of unresolved migration begins (a
+        crash or a dropped import RPC left a durable begin with no
+        commit/abort).  Each pass asks every begin's dest for its
+        has_import answer: adopted -> flip the map and commit; not
+        adopted -> abort and re-open.  Unreachable dests just stay
+        queued — the partition remains sealed, which is safe on both
+        sides."""
+        interval = max(self.cycle_interval * 5.0, 2.0)
+        while not self._stop.wait(interval):
+            if self.ha_role != "leader":
+                continue
+            try:
+                self._resolve_migrations_once()
+            except Exception:
+                pass  # never kill the loop; next tick retries
+
+    def _resolve_migrations_once(self) -> int:
+        """One resolution pass; returns how many begins settled."""
+        fed = self.scheduler.fed
+        if fed is None or self.shard_map is None:
+            return 0
+        with self._lock:
+            pending = [dict(r) for r in fed.unresolved_migrations]
+        settled = 0
+        for rec in pending:
+            mid = str(rec.get("mid", ""))
+            partition = str(rec.get("partition", ""))
+            dest = str(rec.get("dest", ""))
+            spec = self.shard_map.spec(dest) if dest else None
+            if spec is None or not spec.address:
+                continue
+            verdict = self._query_dest_import(spec.address, mid,
+                                              attempts=1)
+            if verdict is None:
+                continue  # still unreachable; stay sealed
+            adopted, _jobs = verdict
+            now = self._now()
+            with self._lock:
+                if not any(r.get("mid") == mid
+                           for r in fed.unresolved_migrations):
+                    continue  # settled concurrently
+                if adopted:
+                    try:
+                        self.shard_map = \
+                            self.shard_map.with_partition_moved(
+                                partition, dest)
+                    except ValueError:
+                        pass  # map already routes it to the dest
+                    fed.commit_migration(mid, partition, now)
+                else:
+                    fed.abort_migration(mid, partition, now)
+                self.scheduler.events.emit(
+                    "fed_migrate_resolved", "info", time=now,
+                    detail=f"mid={mid} part={partition} -> "
+                           + ("commit" if adopted else "abort"))
+            settled += 1
+        return settled
 
     def _cycle_loop(self) -> None:
         """The 1 Hz ScheduleThread_ analog (JobScheduler.cpp:1321,1981).
@@ -1325,6 +1847,11 @@ class CtldServer:
             with self._lock:
                 if self.sim is not None:
                     self.sim.advance_to(now)
+                if self.scheduler.fed is not None:
+                    # a dead arbiter's leases self-expire here, so
+                    # reserved-but-never-confirmed nodes rejoin the
+                    # local pool without operator action
+                    self.scheduler.fed.expire(now)
                 gen = self.scheduler.cycle_phases(now)
                 try:
                     fn = next(gen)
@@ -1384,6 +1911,12 @@ class CtldServer:
         self.scheduler.flight.close()
         if self.dispatcher is not None:
             self.dispatcher.close()
+        for cli in self._fwd_clients.values():
+            try:
+                cli.close()
+            except Exception:
+                pass
+        self._fwd_clients.clear()
         if self._metrics_server is not None:
             self._metrics_server.shutdown()
             self._metrics_server = None

@@ -13,7 +13,8 @@ class GrpcStub:
     def __init__(self, address: str, service: str, timeout: float = 30.0,
                  token: str = "", tls=None,
                  token_key: str = "crane-token",
-                 max_receive_bytes: int | None = None):
+                 max_receive_bytes: int | None = None,
+                 local_subchannels: bool = False):
         self.address = address
         self.service = service
         self.timeout = timeout
@@ -28,6 +29,11 @@ class GrpcStub:
         # C6)
         options = ([("grpc.max_receive_message_length", max_receive_bytes)]
                    if max_receive_bytes is not None else [])
+        # a channel of its own connections: by default channels to one
+        # address share them process-wide, so a new channel inherits
+        # the reconnect backoff of a connection an outage left failing
+        if local_subchannels:
+            options.append(("grpc.use_local_subchannel_pool", 1))
         if tls is not None:
             from cranesched_tpu_torch.utils.pki import secure_channel
             self._channel = secure_channel(address, tls, options)

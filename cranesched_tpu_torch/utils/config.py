@@ -3,11 +3,9 @@ reference etc/config.yaml → Ctld::Config, CtldPublicDefs.h:92-258): node
 inventory with hostlist expressions, partitions with priorities and ACLs,
 priority weights, scheduler knobs, WAL path, and the listen address.
 ``build()`` turns a parsed config into live control-plane objects on the
-card (or on the device the caller names).
-
-The ``Federation:`` block is federation's (ROADMAP.md A14): a config
-that sets it, and ``shard_map()`` / ``global_limits()``, raise
-``NotImplementedError`` naming that item."""
+card (or on the device the caller names).  The ``Federation:`` block
+(``shard_map()``, ``global_limits()``, ``shard_name``) is read as the JAX
+package reads it."""
 
 from __future__ import annotations
 
@@ -18,11 +16,6 @@ from typing import Any
 import yaml
 
 from cranesched_tpu_torch.utils.hostlist import parse_hostlist
-
-def _federation_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is federation's, not in the port yet (ROADMAP.md A14)")
-
 
 def solver_for(name: str, device) -> str:
     """``Scheduler: Solver`` as the scheduler on ``device`` (None = the
@@ -164,10 +157,6 @@ class CraneConfig:
     # [{name, partitions, address}]} — empty = single-controller cluster
     federation: dict[str, Any] = dataclasses.field(default_factory=dict)
 
-    def __post_init__(self):
-        if self.federation:
-            raise _federation_not_ported("a Federation: block")
-
     @property
     def metrics_port(self) -> int | None:
         port = self.observability.get("MetricsPort")
@@ -186,12 +175,26 @@ class CraneConfig:
                 self.tls.get("RequireClientCert", False)))
 
     def shard_map(self):
-        """The ``Federation:`` routing table: federation's (A14)."""
-        raise _federation_not_ported("shard_map()")
+        """-> fed.shardmap.ShardMap from the ``Federation:`` section, or
+        None for a single-controller cluster."""
+        if not self.federation:
+            return None
+        from cranesched_tpu_torch.fed.shardmap import ShardMap
+        # validate against the cluster's partition inventory: a
+        # configured partition no shard owns routes submits nowhere
+        return ShardMap.from_config(
+            self.federation,
+            configured_partitions=[p.name for p in self.partitions])
 
     def global_limits(self):
-        """The ``Federation: Limits:`` section: federation's (A14)."""
-        raise _federation_not_ported("global_limits()")
+        """-> fed.usage.GlobalLimits from ``Federation: Limits:``, or
+        None when the section is absent (per-shard limits only)."""
+        section = self.federation.get("Limits") if self.federation \
+            else None
+        if not section:
+            return None
+        from cranesched_tpu_torch.fed.usage import GlobalLimits
+        return GlobalLimits.from_config(section)
 
     @property
     def shard_name(self) -> str:

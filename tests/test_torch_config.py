@@ -2,8 +2,10 @@
 against the JAX package's: the same file through both ``load_config``
 functions gives the same parsed config, and ``build()`` the same nodes,
 partitions, ``SchedulerConfig``, priority weights, licenses, accounts
-and topology.  The ``Federation:`` block is federation's (ROADMAP.md
-A14) and is refused by name.
+and topology.  The ``Federation:`` block (refused naming ROADMAP.md A14
+until federation came into the port) gives the same ``shard_map()``,
+``global_limits()`` and ``shard_name``, and the same refusals of a
+partition owned twice or by no shard.
 """
 
 import dataclasses
@@ -193,24 +195,59 @@ def test_parse_max_age_matches(value):
 
 
 def test_federation_refused_naming_a14(tmp_path):
+    """The ``Federation:`` block through both packages: the same shard
+    map (shards, addresses, followers, epoch), the same global limits and
+    shard name, no limits without ``Limits:``, no map without the block,
+    and the same refusals of a partition owned by two shards or by none.
+    """
     text = FULL + """
 Federation:
   ShardName: s0
+  Epoch: 3
+  Limits:
+    MaxJobsPerUser: 6
+    MaxSubmitJobsPerAccount: 40
+    PublishSlack: 2
   Shards:
     - name: s0
-      partitions: [batch, debug, gpu]
+      partitions: [batch, debug]
       address: 127.0.0.1:1
+      followers: [127.0.0.1:2]
+    - name: s1
+      partitions: [gpu]
+      address: 127.0.0.1:3
 """
     path = _write(tmp_path, text)
-    jconfig.load_config(path)          # the JAX package takes it
-    with pytest.raises(NotImplementedError, match="A14"):
-        tconfig.load_config(path)
-    cfg = tconfig.load_config(_write(tmp_path, FULL))
-    for call in (cfg.shard_map, cfg.global_limits):
-        with pytest.raises(NotImplementedError, match="A14"):
-            call()
-    with pytest.raises(NotImplementedError, match="A14"):
-        tconfig.CraneConfig(federation={"ShardName": "s0"})
+    jcfg, tcfg = jconfig.load_config(path), tconfig.load_config(path)
+    jmap, tmap = jcfg.shard_map(), tcfg.shard_map()
+    assert tmap.doc() == jmap.doc()
+    assert (tmap.epoch, tmap.names()) == (jmap.epoch, jmap.names()) == \
+        (3, ["s0", "s1"])
+    assert tmap.shard_for_partition("gpu") == "s1"
+    assert dataclasses.asdict(tcfg.global_limits()) == \
+        dataclasses.asdict(jcfg.global_limits())
+    assert tcfg.global_limits().max_jobs_per_user == 6
+    assert tcfg.shard_name == jcfg.shard_name == "s0"
+    plain = _write(tmp_path, FULL)
+    for mod in (jconfig, tconfig):
+        cfg = mod.load_config(plain)
+        assert cfg.shard_map() is None and cfg.global_limits() is None
+        assert cfg.shard_name == ""
+    no_limits = _write(tmp_path, text.replace(
+        "  Limits:\n    MaxJobsPerUser: 6\n"
+        "    MaxSubmitJobsPerAccount: 40\n    PublishSlack: 2\n", ""))
+    assert tconfig.load_config(no_limits).global_limits() is None
+    for bad, match in ((text.replace("partitions: [gpu]",
+                                     "partitions: [gpu, batch]"),
+                        "owned by both"),
+                       (text.replace("partitions: [gpu]",
+                                     "partitions: []"), "owned by no")):
+        errors = []
+        for mod in (jconfig, tconfig):
+            with pytest.raises(ValueError, match=match) as info:
+                mod.load_config(_write(tmp_path, bad)).shard_map()
+            errors.append(str(info.value))
+        assert errors[0] == errors[1]
 
 
 @pytest.mark.parametrize("name,device,want", [

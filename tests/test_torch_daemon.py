@@ -2,9 +2,9 @@
 as a subprocess on the CPU (``--device cpu``): the banner, submits over
 the wire, SIGTERM with exit 0, a restart from the WAL (and its snapshot)
 that keeps every acknowledged job in the state the last query showed,
-the held lease's refusal, a hot standby, the refusal naming ROADMAP.md
-A14,
-the real node plane (no ``--sim``: a ``craned_main`` subprocess registers
+the held lease's refusal, a hot standby, a federation shard (refused
+naming ROADMAP.md A14 until federation came into the port), the real node
+plane (no ``--sim``: a ``craned_main`` subprocess registers
 and runs jobs as real processes), and the boot path's bounded acquisition of the card, which never
 carries on on the CPU when it fails (tested with a stubbed probe).  In
 process: the snapshot document against the JAX package's, and the
@@ -172,14 +172,18 @@ def test_submit_sigterm_restart_keeps_every_acked_job(tmp_path):
     (("--sim", "--ha-standby", "--ha-peer", "127.0.0.1:1", "--device",
       "cpu"), "", "A13"),
     (("--sim", "--device", "cpu"),
-     "Federation:\n  ShardName: s0\n", "A14"),
+     "Federation:\n  ShardName: s0\n  Limits:\n    MaxJobsPerUser: 6\n"
+     "  Shards:\n    - name: s0\n      partitions: [batch]\n"
+     "    - name: s1\n      partitions: []\n"
+     "      address: 127.0.0.1:1\n", "A14"),
 ], ids=["real-node-plane", "dispatch-workers", "standby", "federation"])
 def test_unported_features_refused_by_item(tmp_path, args, extra, item):
-    """What the port does not carry is refused naming its ROADMAP item
-    (A14); what came since starts with its banner and stops with 0 on
-    SIGTERM: the real node plane and its dispatch pool (item None) and a
-    hot standby (A13), which here follows a leader that never answers,
-    so it takes its own free lease and promotes itself."""
+    """What each ROADMAP item brought starts with its banner and stops
+    with 0 on SIGTERM: the real node plane and its dispatch pool (item
+    None), a hot standby (A13), which here follows a leader that never
+    answers, so it takes its own free lease and promotes itself, and a
+    federation shard (A14), whose limits clamp the default publish slack
+    and whose map and usage answer over the wire."""
     d = Daemon(tmp_path, "d", "-c", _config(tmp_path, extra), *args)
     try:
         if item is None:
@@ -191,8 +195,9 @@ def test_unported_features_refused_by_item(tmp_path, args, extra, item):
         if item == "A13":
             client = CtldClient(f"127.0.0.1:{d.port()}", timeout=10.0)
             assert "STANDBY of 127.0.0.1:1" in d.stdout()
-            assert "hot standby: replicating from 127.0.0.1:1" in \
-                d.stdout()
+            # printed just after the banner: wait for it, not race it
+            assert _until(lambda: "hot standby: replicating from "
+                          "127.0.0.1:1" in d.stdout())
             assert _until(lambda: client.ha_status().role == "leader")
             assert "PROMOTED to leader (epoch 1" in d.stderr()
             assert client.submit(_spec()).job_id == 1
@@ -200,9 +205,29 @@ def test_unported_features_refused_by_item(tmp_path, args, extra, item):
             os.kill(d.proc.pid, signal.SIGTERM)
             assert d.wait() == 0
             return
-        assert d.wait() != 0
-        assert f"ROADMAP.md {item}" in d.stderr()
-        assert not BANNER.search(d.stdout())
+        client = CtldClient(f"127.0.0.1:{d.port()}", timeout=10.0)
+        assert "(simulated node plane, 4 nodes configured" in d.stdout()
+        err = d.stderr()
+        assert "federation shard 's0': 2 shards, map epoch 0, global " \
+            "limits on" in err
+        assert "PublishSlack=8 leaves no admissible headroom" in err
+        assert "clamped to 5" in err
+        smap = client.query_shard_map()
+        assert smap.shard == "s0" and not smap.error
+        assert [s.name for s in smap.shards] == ["s0", "s1"]
+        reply = client.submit(_spec())
+        assert reply.job_id == 1 and reply.shard == "s0"
+        usage = client.fetch_usage()
+        assert usage.ok
+        # the job may already run: its submit slot counts either way
+        assert json.loads(
+            usage.payload)["user"]["alice"]["submit_jobs"] == 1
+        stats = json.loads(client.query_stats().json)
+        assert stats["fed"]["shard"] == "s0"
+        assert stats["fed"]["leases"] == 0
+        client.close()
+        os.kill(d.proc.pid, signal.SIGTERM)
+        assert d.wait() == 0
     finally:
         d.kill()
 

@@ -11,7 +11,10 @@ second scheduler from that WAL, runs a cycle with the native solver
 under a profiler capture, and serves ``etc/config.yaml``'s cluster over
 gRPC (the daemon's modules: config, lease, snapshot, server and client),
 solves on a mesh of CPU shards and with the speculative and blocked
-solvers, and builds a hot standby's server and follower.
+solvers, builds a hot standby's server and follower, and runs a two-shard
+federation (``fed/``: a cross-partition gang through the arbiter, the
+usage gossip, a live partition migration) whose shards' stats merge
+through ``obs/fedobs.py``.
 The node plane (the craned, its supervisor, ``craned_main``, ``coord``,
 the rendezvous service) also imports with ``torch`` blocked, so a craned
 and every step's supervisor start without loading it.
@@ -176,6 +179,33 @@ _CHILD = textwrap.dedent("""
                           os.path.join(tmp, "s.wal"))
     assert follower.staleness() == float("inf")
     standby.stop()
+    # federation: two shards, a gang through the arbiter, the usage
+    # gossip, a live migration, and the cluster-wide metric merge
+    from cranesched_tpu_torch.fed.arbiter import GangRequest
+    from cranesched_tpu_torch.fed.sim import FederatedCluster
+    from cranesched_tpu_torch.fed.usage import GlobalLimits
+    from cranesched_tpu_torch.obs import REGISTRY, merge_metric_snapshots
+    fc = FederatedCluster(dict(east=dict(a=2), west=dict(b=2)),
+                          wal_dir=tmp, device="cpu",
+                          global_limits=GlobalLimits(
+                              max_submit_jobs_per_user=50),
+                          publish_slack=0)
+    for j in range(6):
+        fc.submit(JobSpec(name="f%d" % j, res=ResourceSpec(cpu=2.0),
+                          partition="ab"[j % 2], sim_runtime=5.0), 0.0)
+        fc.pump_usage(0.0)
+    fc.submit_gang(GangRequest(name="g", node_num=3, partitions=("a", "b"),
+                               spec=JobSpec(res=ResourceSpec(cpu=1.0),
+                                            sim_runtime=5.0)))
+    fc.tick()
+    assert fc.migrate("a", "west")["committed"]
+    fc.run_until_drained(max_cycles=200)
+    assert fc.arbiter.stats["commits"] == 1
+    assert fc.ledger_by_name(["f%d" % j for j in range(6)])["lost"] == []
+    merged = merge_metric_snapshots(dict(east=REGISTRY.snapshot(),
+                                         west=REGISTRY.snapshot()))
+    assert sum(merged["crane_fed_migrations_total"]["values"].values()) \\
+        == 2.0
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("OK", len(started), end)
@@ -204,7 +234,9 @@ def test_port_imports_without_jax_and_runs_a_cycle():
                 "craned.daemon", "craned.supervisor", "craned.cgroup",
                 "craned_main", "coord", "utils.gres",
                 "parallel.sharded", "parallel.distributed",
-                "models.speculative", "ha.follower"):
+                "models.speculative", "ha.follower", "fed",
+                "fed.shardmap", "fed.usage", "fed.shard", "fed.arbiter",
+                "fed.rebalance", "fed.sim", "fed.query", "obs.fedobs"):
         assert f"cranesched_tpu_torch.{mod}" in mods, mod
     code = _CHILD.format(blocked=BLOCKED, mods=mods)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

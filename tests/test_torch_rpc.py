@@ -16,8 +16,9 @@
   metrics endpoint, ``QueryStats`` and watchdog fault injection.
 - *The WAL of a batch submit*: the JAX server's records byte for byte,
   one group (one fsync) per 32-spec chunk.
-- *Refusals*: the federation RPCs (ROADMAP.md A14).  The HA replication
-  RPCs answer, and a standby serves queries and refuses mutations
+- *The federation and HA replication RPCs* (once refused naming ROADMAP.md
+  A14 and A13): each answers a shard's reply, and a standby serves
+  queries and refuses mutations
   (``tests/test_torch_ha.py`` holds them against the JAX package).  A
   real node plane (``dispatcher=``) is accepted, registered craneds get
   push channels, and ``stop()`` closes it.
@@ -716,9 +717,43 @@ _REFUSED = [("query_shard_map", (), "A14"),
 @pytest.mark.parametrize("method,args,item", _REFUSED,
                          ids=[m for m, _, _ in _REFUSED])
 def test_unported_rpcs_abort_naming_their_item(ctld, method, args, item):
-    """The federation RPCs abort UNIMPLEMENTED naming A14; the HA
-    replication RPCs, in since A13, answer a leader's replies."""
-    client, _server, sched, _port = ctld
+    """The RPCs once refused by item answer now: the federation RPCs (in
+    since A14) a shard's replies, here of a one-shard federation with a
+    usage book (``tests/test_torch_federation.py`` and
+    ``test_torch_rebalance.py`` hold them against the JAX package); the
+    HA replication RPCs (in since A13) a leader's."""
+    client, server, sched, _port = ctld
+    if item == "A14":
+        from cranesched_tpu_torch.fed.shard import FedShardPlane
+        from cranesched_tpu_torch.fed.shardmap import ShardMap, ShardSpec
+        from cranesched_tpu_torch.fed.usage import GlobalLimits, UsageBook
+        FedShardPlane(sched, "s1")
+        sched.global_usage = UsageBook(
+            "s1", GlobalLimits(max_submit_jobs_per_user=10))
+        server.shard_name = "s1"
+        server.shard_map = ShardMap([ShardSpec("s1", ("default",))])
+        assert client.submit(job_spec(user="u")).job_id == 1
+        reply = getattr(client, method)(*args)
+        if method == "query_shard_map":
+            assert (reply.shard, reply.error, reply.map_epoch) == \
+                ("s1", "", 0)
+            assert [(s.name, list(s.partitions)) for s in reply.shards] \
+                == [("s1", ["default"])]
+        elif method == "lease_nodes":
+            assert reply.ok and len(reply.node_names) == 1
+            assert reply.node_names[0] in {"cn00", "cn01", "cn02", "cn03"}
+            assert sched.fed.leases["l"].partition == "default"
+        elif method == "fetch_usage":
+            doc = json.loads(reply.payload)
+            assert reply.ok and reply.shard == "s1"
+            assert doc["user"] == {"u": {"jobs": 0, "submit_jobs": 1}}
+        elif method == "migrate_partition":
+            assert not reply.ok
+            assert reply.error == "bad destination shard 's2'"
+        else:
+            # no lease "l" is held: the shard refuses by name
+            assert not reply.ok and "no such lease" in reply.error
+        return
     if item == "A13":
         reply = getattr(client, method)(*args)
         if method == "ha_status":
@@ -730,11 +765,6 @@ def test_unported_rpcs_abort_naming_their_item(ctld, method, args, item):
         else:
             # this leader keeps no WAL: nothing to replicate
             assert not reply.ok and "no WAL" in reply.error
-        return
-    with pytest.raises(grpc.RpcError) as info:
-        getattr(client, method)(*args)
-    assert info.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    assert f"ROADMAP.md {item}" in info.value.details()
 
 
 def test_real_node_plane_and_standby_refused():
