@@ -161,7 +161,8 @@ Phases (any failure exits non-zero and prints no result):
    acknowledged job as the last query before the stop did; boot-to-banner
    seconds,
    the first cycle's time, and each cycle's ``total_ms``/``solve_ms``.
-   Leg (b) runs beside phase 16, in a process of its own;
+   Leg (b) runs beside phase 16, in a process of its own.  Leg (a) ends
+   with 17 (c);
 13. the CPU checks: every plain version and CPU replay above runs in
    one of ``CPU_WORKERS`` worker processes beside the card's phases;
    the script waits for all of them and fails on any failure;
@@ -169,7 +170,7 @@ Phases (any failure exits non-zero and prints no result):
    ``python3 -m cranesched_tpu_torch.ctld_main -c <yaml>`` on the card
    with no ``--sim`` (phase 12's cluster, ``CranedTimeoutSec: 10``, and
    two nodes under host names that resolve here in a partition of their
-   own), ``NP_JOBS`` (25,000) of phase 12's draws as real scripts (echo
+   own), ``NP_JOBS`` (15,000) of phase 12's draws as real scripts (echo
    the job id, node and shell PID, sleep 1-8 s, 2% ``exit 3``) and ten
    sleepers on the gang nodes, then ``NP_CRANEDS`` real ``craned_main``
    processes (a quarter a partition, each a configured node with its
@@ -245,10 +246,35 @@ Phases (any failure exits non-zero and prints no result):
    SIGKILLed and restarted with the imported partition and every job
    once by name; greedy_place in both shards' cycles (trace rows).  (b),
    12 (b) and 15 (e) run beside (a), each in a process of its own;
-17. one JSON line each for the cycles, the lifecycle, the obs phase, the
-   native solver, the controller, the node plane, the scale-out phase
-   and the federation, one describing every kernel, then the card line,
-   then the result line ``{"ok": true, "device": {...}}``.
+17. the replays (``cranesched_tpu_torch/replay.py``) and the ``crane``
+   commands (``cli.py``): (a) ``replay fifo --scale 1.0 --rpc --wal``
+   on the card, BASELINE config #1 at its full shape (10,000 jobs x
+   1,000 nodes) through ``SubmitBatchJobs``, the WAL and ``Tick``: every
+   job submitted, finished and completed, greedy_place launched (the
+   trace rows' ``kernel_launches``, equal to the wrapper's count), and
+   the result equal to the same replay on the CPU (from the same seed,
+   in the same mode, in a CPU-check worker started before phase 3) on
+   every field but the wall-clock ones and on a digest of every finished
+   job's id, status, start, end and nodes; (b) ``minload``,
+   ``backfill``, ``gres``, ``qos`` and ``topo`` direct at the cut scales
+   of ``REPLAY_SCALES``, ``--slo`` on backfill at 0.05 and the
+   ``--federation`` and ``--rebalance`` drills at 0.25, on the card:
+   each ``ok`` where it has one, no job lost or doubled (the job trace's
+   ledger), at least 95% completed, and greedy_place launched where the
+   configuration's cycles reach it; each leg's wall time.  (a) and (b)
+   run beside phase 16, in a process of their own.  (c) at the end of
+   12 (a), against its server and twin: ``cqueue``, ``cinfo``,
+   ``cstats``, ``csummary``, ``cexplain`` of a pending job and
+   ``cevents`` through ``cli.main`` in this process, each against the
+   twin's handlers (jobs and nodes by state, the counters, the pending
+   reason, the event seqs); then ``cqueue`` as a process of its own,
+   as ``python -m cranesched_tpu_torch.cli`` and through a ``python -c``
+   wrapper that reports that ``torch`` was not loaded, each timed;
+18. one JSON line each for the cycles, the lifecycle, the obs phase, the
+   native solver, the controller, the node plane, the scale-out phase,
+   the federation and the replays, one describing every kernel, then
+   the card line, then the result line ``{"ok": true, "device":
+   {...}}``.
 
 It imports nothing of the JAX package.  The kernel build goes to
 ``build/kernels/`` (see ``cranesched_tpu_torch/kernels/build.py``).
@@ -2938,6 +2964,8 @@ def phase_service():
         out["cancel"] = {"jobs": len(victims), "seconds": dt,
                          "per_call_ms": dt * 1e3 / len(victims)}
         out["launches"] = launches
+        # 17 (c): the crane commands against this server
+        out["cli"] = cli_vs_twin("cli", addr, twin, twin_srv)
         print(f"[{label}] {len(cursors)} QueryJobsInfo pages, stream, "
               f"cluster, summary, events and stats == twin; {len(victims)} "
               f"cancels over the wire in {dt:.2f}s; == twin on {rows} job "
@@ -3216,7 +3244,7 @@ NP_CRANEDS = 16
 # the backlog of real scripts, cut from N_JOBS for the run's time limit
 # (PERF.md §4): still far more than the 18 alive nodes run in the window,
 # so every cycle is a split one with the kernel's tail
-NP_JOBS = N_JOBS // 4
+NP_JOBS = N_JOBS * 3 // 20
 NP_RUN_S = 30.0            # real-time cycles once the craneds registered
 NP_CANCEL = 10             # running jobs cancelled
 NP_PING_S = 2.0            # the craneds' ping interval
@@ -5179,6 +5207,343 @@ def phase_federation_daemons():
     return out, launches["east"] + launches["west"]
 
 
+# ---------------------------------------------------------------------------
+# 17. the BASELINE replays (replay.py) on the card, and the crane commands
+# (cli.py) against phase 12 (a)'s server
+# ---------------------------------------------------------------------------
+
+REPLAY_SEED = 0
+REPLAY_FIFO_SCALE = 1.0       # (a): BASELINE config #1 at its full shape
+# (b): the other configurations at a cut scale (a depth cut for the run's
+# time limit, PERF.md §4: backfill's head and topo's gang solve are
+# per-job loops, ~94 and ~103 s alone at 0.1 and 1.0), the closed loops
+# at REPLAY_r06-r08's scales
+REPLAY_SCALES = {"minload": 0.03, "backfill": 0.02, "gres": 0.1,
+                 "qos": 0.05, "topo": 0.05}
+REPLAY_SLO = ("backfill", 0.05)
+REPLAY_FED_SCALE = 0.25
+# the fields of a replay's result measured on the host's clock
+REPLAY_WALL = frozenset({"wall_s", "jobs_per_wall_s", "submit_wall_s",
+                         "submit_jobs_per_s", "cycle_ms_mean",
+                         "cycle_ms_p99", "cycle_ms_max"})
+
+
+def replay_recorded(sched, sim, specs, run, **kw):
+    """``run(sched, sim, specs, **kw)`` (a mode of ``replay``) with every
+    trace row's greedy_place launches summed as the rows are pushed (the
+    ring keeps only the newest), every timeline kept, and the result
+    given ``_trace`` (rows, launches, devices), ``_ledger`` (the job
+    trace's lost and doubled jobs) and ``_digest`` (a SHA-256 over every
+    finished job's id, status, start, end and node ids, in id order)."""
+    import hashlib
+
+    rows = {"rows": 0, "launches": 0, "devices": set()}
+    push = sched.cycle_trace.push
+
+    def counted(trace):
+        rows["rows"] += 1
+        if trace.get("solver") != "skip":   # a skipped cycle ran nothing
+            rows["launches"] += trace["kernel_launches"]
+            rows["devices"].add(trace["device"])
+        push(trace)
+
+    sched.cycle_trace.push = counted
+    sched.jobtrace.capacity = max(sched.jobtrace.capacity, 4 * len(specs))
+    out = run(sched, sim, specs, **kw)
+    ledger = sched.jobtrace.ledger(sorted(sched.history))
+    digest = hashlib.sha256()
+    for jid in sorted(sched.history):
+        j = sched.history[jid]
+        digest.update(repr((jid, j.status.value, j.start_time, j.end_time,
+                            list(j.node_ids))).encode())
+    rows["devices"] = sorted(map(str, rows["devices"]))
+    out["_trace"] = rows
+    out["_ledger"] = {"lost": len(ledger["lost"]),
+                      "doubled": len(ledger["doubled"]),
+                      "checked": ledger["checked"], "specs": len(specs)}
+    out["_digest"] = digest.hexdigest()
+    return out
+
+
+def replay_fifo_rpc(device, tmp):
+    """(a): ``replay fifo --scale 1.0 --rpc --wal <tmp>/fifo.wal`` from
+    ``REPLAY_SEED`` on ``device``, recorded (``replay_recorded``)."""
+    import functools
+    import os
+
+    from cranesched_tpu_torch import replay
+
+    run = functools.partial(replay_recorded, run=replay._run_rpc,
+                            wal_path=os.path.join(tmp, "fifo.wal"))
+    return replay.replay_fifo(REPLAY_FIFO_SCALE,
+                              np.random.default_rng(REPLAY_SEED), run=run,
+                              device=device)
+
+
+def replay_fifo_cpu(label):
+    """(a)'s CPU run, in a worker process: the same replay from the same
+    seed in the same mode on ``device="cpu"``."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="crane-replay-cpu-")
+    try:
+        t0 = time.perf_counter()
+        out = replay_fifo_rpc("cpu", tmp)
+        out["_seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_replay():
+    """(a) and (b) on the card, in a process of its own; returns the report
+    (each leg's result, wall time and launches) and greedy_place's
+    launches over all legs (the wrapper's count, which this process
+    zeroes before each leg; where the leg has one scheduler, its trace
+    rows must say the same)."""
+    import functools
+    import os
+    import shutil
+    import tempfile
+
+    from cranesched_tpu_torch import replay
+    from cranesched_tpu_torch.models import gpu_solver as g
+
+    label = "replay"
+    tmp = tempfile.mkdtemp(prefix="crane-replay-")
+    out = {"legs": {}}
+    t_phase = time.perf_counter()
+
+    def leg(name, call, kernel=True):
+        """Run ``call()``; ``kernel``: whether greedy_place must launch
+        (True), must not (False) or may (None)."""
+        g.greedy_place.launches = 0
+        t0 = time.perf_counter()
+        r = call()
+        wall = time.perf_counter() - t0
+        n = g.greedy_place.launches
+        check(kernel in (None, n >= 1),
+              f"{label} {name}: greedy_place launched {n} times (want "
+              f"{ {True: 'some', False: 'none', None: 'any'}[kernel]})")
+        check(r["completed"] >= 0.95 * r["jobs_finished"] > 0,
+              f"{label} {name}: {r['completed']} of {r['jobs_finished']} "
+              "completed")
+        if "_trace" in r:       # one scheduler, recorded
+            trace, ledger = r["_trace"], r["_ledger"]
+            check(trace["launches"] == n and trace["devices"] == [DEVICE],
+                  f"{label} {name}: greedy_place {n}, trace rows {trace}")
+            check(ledger["lost"] == ledger["doubled"] == 0
+                  and ledger["checked"] == ledger["specs"]
+                  == r["jobs_finished"],
+                  f"{label} {name}: ledger {ledger}, {r['jobs_finished']} "
+                  "finished")
+        res = {k: v for k, v in r.items() if not k.startswith("_")}
+        res.update(wall_s_leg=wall, launches=n,
+                   ledger_audit=r.get("_ledger"))
+        out["legs"][name] = res
+        print(f"[{label}] {name}: {wall:.1f}s, {r['jobs_finished']} "
+              f"finished, {r['completed']} completed, {r['cycles']} "
+              f"cycles, greedy_place {n}; "
+              f"{time.perf_counter() - t_phase:.1f}s into the phase",
+              flush=True)
+        return r
+
+    def config(name, scale, run, **kw):
+        return lambda: replay.CONFIGS[name](
+            scale, np.random.default_rng(REPLAY_SEED),
+            run=functools.partial(replay_recorded, run=run, **kw),
+            device=DEVICE)
+
+    def splits(name, scale):
+        """Whether the configuration's cycles launch greedy_place: the
+        immediate ones do; backfill's do not while its candidates fit the
+        head (at most ``backfill_max_jobs``, 1,024; replay_backfill draws
+        5,000 x scale jobs), which places them all through the time-axis
+        solve; topo's only in a cycle with no gang among its candidates
+        (a gang sends the cycle through the best-fit-block solve), so
+        either way (None)."""
+        if name == "topo":
+            return None
+        return name != "backfill" or int(5000 * scale) > 1024
+
+    try:
+        # (a) BASELINE config #1 at 10,000 jobs x 1,000 nodes through
+        # gRPC, the WAL and Tick
+        r = leg("fifo", lambda: replay_fifo_rpc(DEVICE, tmp))
+        n_jobs = max(int(10_000 * REPLAY_FIFO_SCALE), 20)
+        check(r["mode"] == "rpc+wal"
+              and r["jobs_submitted"] == r["jobs_finished"]
+              == r["completed"] == n_jobs,
+              f"{label} fifo: {r['jobs_submitted']} submitted, "
+              f"{r['jobs_finished']} finished, {r['completed']} completed")
+        out["fifo_digest"] = r["_digest"]
+        out["fifo_unwalled"] = {k: v for k, v in r.items()
+                                if k not in REPLAY_WALL
+                                and not k.startswith("_")}
+        out["fifo_rows"] = r["_trace"]["rows"]
+
+        # (b) the other configurations, direct, at their cut scales
+        for name, scale in REPLAY_SCALES.items():
+            r = leg(name, config(name, scale, replay._run_direct),
+                    kernel=splits(name, scale))
+            if name == "topo":
+                check(r["topo_in_block_gangs"] > 0,
+                      f"{label} topo: no gang placed in one block")
+
+        # the closed loop on backfill at REPLAY_r06's scale
+        name, scale = REPLAY_SLO
+        r = leg(f"{name}-slo",
+                config(name, scale, replay._run_closed_loop,
+                       wal_path=os.path.join(tmp, "slo.wal")),
+                kernel=splits(name, scale))
+        check(r["slo_assert"]["ok"], f"{label} slo: {r['slo_assert']}")
+
+        # the federation drills at REPLAY_r07/r08's scale; their shards
+        # run SchedulerConfig(), whose cycles at this depth fit the
+        # backfill head, so greedy_place may not launch
+        for name, drill in (("federation", replay.replay_federation),
+                            ("rebalance", replay.replay_rebalance)):
+            r = leg(name, functools.partial(
+                drill, REPLAY_FED_SCALE, np.random.default_rng(REPLAY_SEED),
+                device=DEVICE), kernel=None)
+            audit = r["ledger"] if name == "federation" else r["audit"]
+            check(r["ok"] and audit["lost"] == audit["doubled"] == 0,
+                  f"{label} {name}: ok {r['ok']}, {audit}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["launches"] = sum(v["launches"] for v in out["legs"].values())
+    return out, out["launches"]
+
+
+def same_replay(label, card, cpu):
+    """(a) on the card equals its CPU run on every non-wall field and on
+    the job digest."""
+    want = {k: v for k, v in cpu.items()
+            if k not in REPLAY_WALL and not k.startswith("_")}
+    check(card["fifo_unwalled"] == want,
+          f"{label}: fifo on the card {card['fifo_unwalled']} != on the "
+          f"CPU {want}")
+    check(card["fifo_digest"] == cpu["_digest"],
+          f"{label}: the finished jobs' digest differs from the CPU run's")
+    check(card["fifo_rows"] == cpu["_trace"]["rows"],
+          f"{label}: {card['fifo_rows']} trace rows, the CPU run "
+          f"{cpu['_trace']['rows']}")
+    print(f"[{label}] fifo at its full shape over rpc+wal == its CPU run "
+          f"({cpu['_seconds']:.1f}s in a worker): every non-wall field, "
+          f"{cpu['jobs_finished']} jobs' (id, status, start, end, nodes) "
+          f"digest {cpu['_digest'][:16]}", flush=True)
+
+
+def _table(text):
+    """A ``_fmt_table`` printout as dicts by header (each column starts
+    where its header word does)."""
+    import re
+
+    lines = text.splitlines()
+    head = lines[0]
+    starts = [m.start() for m in re.finditer(r"\S+", head)]
+    names = head.split()
+    bounds = list(zip(starts, starts[1:] + [None]))
+    return [{n: row[a:b].strip() for n, (a, b) in zip(names, bounds)}
+            for row in lines[1:] if not row.startswith("#")]
+
+
+def cli_vs_twin(label, addr, twin, twin_srv):
+    """The crane commands in this process against phase 12 (a)'s server
+    after its ticks and cancels, each against the twin; then ``cqueue``
+    as a process of its own, which must load no torch."""
+    import collections
+    import contextlib
+    import io
+    import os
+    import subprocess
+
+    from cranesched_tpu_torch import cli
+    from cranesched_tpu_torch.rpc import crane_pb2 as pb
+
+    out = {}
+
+    def crane(*argv, want=0):
+        buf, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = cli.main(["--server", addr, *argv])
+        out[argv[0]] = time.perf_counter() - t0
+        check(rc == want, f"{label}: crane {' '.join(argv)} exited {rc}: "
+                          f"{err.getvalue()[-300:]}")
+        return buf.getvalue() if rc == 0 else err.getvalue()
+
+    jobs = twin_srv.QueryJobsInfo(pb.QueryJobsRequest(), None).jobs
+    rows = _table(crane("cqueue"))
+    check(collections.Counter(r["STATE"] for r in rows)
+          == collections.Counter(j.status for j in jobs)
+          and [int(r["JOBID"]) for r in rows] == [j.job_id for j in jobs],
+          f"{label}: cqueue's jobs by state differ from the twin's")
+    nodes = twin_srv.QueryClusterInfo(pb.QueryClusterRequest(), None).nodes
+    rows = _table(crane("cinfo"))
+    check(collections.Counter(r["STATE"] for r in rows)
+          == collections.Counter(n.state for n in nodes)
+          and len(rows) == len(nodes) == N_NODES,
+          f"{label}: cinfo's nodes by state differ from the twin's")
+    doc = json.loads(crane("cstats"))
+    for key in ("cycles", "jobs_started_total", "jobs_submitted_total",
+                "jobs_finished_total"):
+        check(doc[key] == twin.stats[key], f"{label}: cstats {key}")
+    summary = twin_srv.QueryJobSummary(pb.QueryJobSummaryRequest(), None)
+    text = crane("csummary")
+    check({r["STATE"]: int(r["COUNT"]) for r in _table(text)}
+          == {s.status: s.count for s in summary.states}
+          and f"# total {summary.total}" in text,
+          f"{label}: csummary differs from the twin's summary")
+    pending = [j for j in jobs if j.status == "Pending"]
+    jid = pending[len(pending) // 2].job_id
+    head = crane("cexplain", str(jid)).splitlines()[0]
+    reason = twin_srv.QueryJobsInfo(pb.QueryJobsRequest(job_ids=[jid]),
+                                    None).jobs[0].pending_reason
+    check(head.endswith(f"pending_reason={reason}"),
+          f"{label}: cexplain {jid} says {head!r}, the twin {reason}")
+    events = [e["seq"] for e in twin.events.since()]
+    text = crane("cevents", want=0 if events else 1)
+    seqs = ([int(r["SEQ"]) for r in _table(text)] if events
+            else [] if text == "no matching events\n" else None)
+    check(seqs == events, f"{label}: cevents' seqs differ from the twin's")
+
+    # cqueue as a process of its own: its wall time, and no torch loaded
+    root = os.path.dirname(os.path.abspath(__file__))
+    wrapper = ("import sys\n"
+               "from cranesched_tpu_torch import cli\n"
+               "rc = cli.main(sys.argv[1:])\n"
+               "print('torch loaded:', 'torch' in sys.modules, "
+               "file=sys.stderr)\n"
+               "sys.exit(rc)\n")
+    procs = {}
+    for kind, cmd in (("python -m", ["-m", "cranesched_tpu_torch.cli"]),
+                      ("python -c", ["-c", wrapper])):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, *cmd, "--server", addr,
+                            "cqueue"], cwd=root, capture_output=True,
+                           text=True, timeout=DAEMON_WAIT_S)
+        procs[kind] = time.perf_counter() - t0
+        check(p.returncode == 0, f"{label}: {kind} cqueue exited "
+                                 f"{p.returncode}: {p.stderr[-300:]}")
+        check(len(p.stdout.splitlines()) == len(jobs) + 1,
+              f"{label}: {kind} cqueue printed "
+              f"{len(p.stdout.splitlines())} lines")
+    check(p.stderr.splitlines()[-1] == "torch loaded: False",
+          f"{label}: the crane command loaded torch: {p.stderr[-200:]}")
+    out = {"in_process_s": out, "subprocess_s": procs,
+           "jobs": len(jobs), "nodes": len(nodes), "explained": jid,
+           "reason": reason, "events": len(events)}
+    print(f"[{label}] crane cqueue/cinfo/cstats/csummary/cexplain/cevents "
+          f"in process == twin ({len(jobs)} jobs, {len(nodes)} nodes, "
+          f"job {jid} pends {reason}, {len(events)} events): "
+          f"{json.dumps(out['in_process_s'])}; cqueue as a process "
+          f"{json.dumps(procs)}, no torch loaded", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         return run()
@@ -5242,6 +5607,9 @@ def run() -> int:
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
+
+    # 17 (a)'s CPU run: the longest check, so the first in the workers
+    cpu_check("replay fifo cpu", replay_fifo_cpu)
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -5331,20 +5699,25 @@ def run() -> int:
     from concurrent.futures import ProcessPoolExecutor
 
     side = ProcessPoolExecutor(
-        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+        max_workers=4, mp_context=multiprocessing.get_context("spawn"))
     try:
         fed_b_f = side.submit(phase_federation_daemons)
         daemon_f = side.submit(phase_daemon)
         failover_f = side.submit(failover_drill)
+        # 17 (a) and (b): the replays on the card
+        replay_f = side.submit(phase_replay)
         fed_a, paths["federation"] = timed("federation", phase_federation)
         t0 = time.perf_counter()
         (fed_b, paths["federation_daemons"]), daemon, failover = (
             fed_b_f.result(), daemon_f.result(), failover_f.result())
+        replays, paths["replay"] = replay_f.result()
         print(f"[phase] beside the federation: its shard daemons, the "
-              f"daemon leg and the failover drill, waited "
-              f"{time.perf_counter() - t0:.1f}s after it", flush=True)
+              f"daemon leg, the failover drill and the replays, waited "
+              f"{time.perf_counter() - t0:.1f}s after it (the replays "
+              f"took {replays['wall_s']:.1f}s)", flush=True)
     finally:
         side.shutdown(wait=True, cancel_futures=True)
+    same_replay("replay", replays, results["replay fifo cpu"])
     fed = {"in_process": fed_a, "daemons": fed_b}
     head_stretch(daemon, service["ticks"][-1]["solve_head_ms"])
     controller = {"service": service, "daemon": daemon,
@@ -5422,6 +5795,9 @@ def run() -> int:
     print(json.dumps({"node_plane": node_plane}), flush=True)
     print(json.dumps({"scaleout": scaleout}), flush=True)
     print(json.dumps({"federation": fed}), flush=True)
+    print(json.dumps({"replay": {
+        "fifo_cpu_s": results["replay fifo cpu"]["_seconds"],
+        "cli": service["cli"], **replays}}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

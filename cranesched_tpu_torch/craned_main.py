@@ -16,30 +16,7 @@ import signal
 import sys
 import threading
 
-
-def _parse_gres(text: str) -> dict:
-    """'gpu:a100:2,fpga::1' -> {"gpu:a100": 2, "fpga:": 1} (the JAX
-    package's ``cli._parse_gres``; the daemon normalizes the keys)."""
-    out = {}
-    for part in text.split(","):
-        bits = part.split(":")
-        if len(bits) == 3:
-            name, typ, count = bits
-        elif len(bits) == 2:
-            name, count = bits
-            typ = ""
-        else:
-            raise SystemExit(f"crane: bad --gres {part!r} "
-                             "(use name[:type]:count)")
-        try:
-            n = int(count)
-        except ValueError:
-            raise SystemExit(f"crane: bad --gres count {count!r}")
-        if n < 1:
-            raise SystemExit(f"crane: --gres count must be >= 1, "
-                             f"got {n}")
-        out[f"{name}:{typ}"] = n
-    return out
+from cranesched_tpu_torch.utils.gres import parse_gres as _parse_gres
 
 
 def main(argv=None) -> int:

@@ -281,6 +281,11 @@ def main(argv=None) -> int:
                          shard_name=shard_name, shard_map=shard_map,
                          standby=args.ha_standby,
                          peer_address=args.ha_peer)
+    # the handlers go in before the banner: a SIGTERM sent once the
+    # banner is read stops the daemon cleanly, whatever setup is left
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *a: stop.set())
+    signal.signal(signal.SIGINT, lambda *a: stop.set())
     print(f"cranectld [{cfg.cluster_name}] listening on port {port} "
           f"({'simulated' if args.sim else 'real'} node plane, "
           f"{len(meta.nodes)} nodes configured, "
@@ -333,9 +338,6 @@ def main(argv=None) -> int:
         print(f"license sync: {cfg.license_sync['Program']} "
               f"every {syncer.interval:g}s", flush=True)
 
-    stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *a: stop.set())
-    signal.signal(signal.SIGINT, lambda *a: stop.set())
     stop.wait()
     if syncer is not None:
         syncer.stop()

@@ -199,7 +199,9 @@ def test_unported_features_refused_by_item(tmp_path, args, extra, item):
             assert _until(lambda: "hot standby: replicating from "
                           "127.0.0.1:1" in d.stdout())
             assert _until(lambda: client.ha_status().role == "leader")
-            assert "PROMOTED to leader (epoch 1" in d.stderr()
+            # the follower flips the role before it logs the promotion
+            assert _until(lambda: "PROMOTED to leader (epoch 1"
+                          in d.stderr())
             assert client.submit(_spec()).job_id == 1
             client.close()
             os.kill(d.proc.pid, signal.SIGTERM)

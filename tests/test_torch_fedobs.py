@@ -440,7 +440,10 @@ def test_profiler_capture_dirs_never_collide_across_shards(tmp_path):
         weird = PW(base_dir=str(base), namespace=lambda: 1 / 0)
         ok4, d4 = weird.request(1)
         assert ok4 and "capture-" in d4 and "capture--" not in d4
-        return [d.replace(str(base), "").split("-")[:2]
+        # a directory is capture-[<namespace>-]<ms>-<pid>-<seq>: the
+        # record keeps the tag, not the millisecond each run read from
+        # the wall clock (the two packages' runs fall in different ones)
+        return [d.replace(str(base), "").split("-")[:-3]
                 for d in (d1, d2, d3, d4)]
     both(scenario)
 

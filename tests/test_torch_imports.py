@@ -17,7 +17,8 @@ usage gossip, a live partition migration) whose shards' stats merge
 through ``obs/fedobs.py``.
 The node plane (the craned, its supervisor, ``craned_main``, ``coord``,
 the rendezvous service) also imports with ``torch`` blocked, so a craned
-and every step's supervisor start without loading it.
+and every step's supervisor start without loading it, and so do the
+``crane`` commands (``cli`` and every module a command reaches).
 ``chip_smoke.py`` and every source of the port are checked by an AST
 scan of their imports, and the port's ``crane_pb2`` is the JAX
 package's byte for byte.
@@ -236,7 +237,8 @@ def test_port_imports_without_jax_and_runs_a_cycle():
                 "parallel.sharded", "parallel.distributed",
                 "models.speculative", "ha.follower", "fed",
                 "fed.shardmap", "fed.usage", "fed.shard", "fed.arbiter",
-                "fed.rebalance", "fed.sim", "fed.query", "obs.fedobs"):
+                "fed.rebalance", "fed.sim", "fed.query", "obs.fedobs",
+                "replay", "cli"):
         assert f"cranesched_tpu_torch.{mod}" in mods, mod
     code = _CHILD.format(blocked=BLOCKED, mods=mods)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -291,6 +293,60 @@ def test_node_plane_imports_without_torch():
     from cranesched_tpu_torch.utils import gres
     assert resources.gres_key_pair is gres.gres_key_pair
     assert resources.gres_key_str is gres.gres_key_str
+
+
+CLI_PLANE = ("cli", "rpc.client", "rpc.cfored", "rpc.crane_pb2",
+             "obs.jobtrace", "obs.fedobs", "fed.query", "utils.pki",
+             "utils.gres")
+
+_CLI_CHILD = textwrap.dedent("""
+    import contextlib, importlib, io, json, sys, tempfile, os
+
+    BLOCKED = {blocked!r}
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked import: " + name)
+            return None
+
+    for name in list(sys.modules):
+        if name.split(".")[0] in BLOCKED:
+            del sys.modules[name]
+    sys.meta_path.insert(0, Refuse())
+    for mod in {mods!r}:
+        importlib.import_module("cranesched_tpu_torch." + mod)
+    from cranesched_tpu_torch import cli
+    args = cli.build_parser().parse_args(
+        ["cbatch", "--gres", "gpu:a100:2", "--array", "0-3%2",
+         "--dependency", "afterok:1", "--mem", "2G"])
+    spec = cli._build_spec(args)
+    assert spec.res.gres["gpu:a100"] == 2 and spec.res.mem_bytes == 2 << 30
+    assert cli._parse_array(args.array).max_concurrent == 2
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        assert cli.main(["--server", "127.0.0.1:1", "cqueue"]) == 3
+    assert "cannot reach ctld" in err.getvalue()
+    path = os.path.join(tempfile.mkdtemp(), "probe.json")
+    with open(path, "w") as fh:
+        json.dump(dict(device_acquisition=dict(acquired=True)), fh)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(["cflight", "--file", path]) == 0
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("OK")
+""")
+
+
+def test_cli_imports_without_torch():
+    """A ``crane`` command must not load torch (~1.5 s and a few hundred
+    MB a call): ``cli`` and the modules its commands import lazily load
+    with torch and the JAX package blocked, and a command runs."""
+    code = _CLI_CHILD.format(blocked=BLOCKED + ("torch",), mods=CLI_PLANE)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.startswith("OK")
 
 
 def _imported_roots(path):
