@@ -992,6 +992,17 @@ def cmd_cstats(args) -> int:
             "SOLVE_MS", "COMMIT_MS", "DISPATCH_MS", "LOCK_MS",
             "TOTAL_MS", "FSYNC", "FRAG")))
         return 0
+    if getattr(args, "spans", False):
+        # the newest cycle's span tree: where its time went, phase by
+        # phase, and what no phase names (the root's self time)
+        rows = [t for t in doc.get("cycle_trace") or () if t.get("spans")]
+        if not rows:
+            print("no cycle spans recorded", file=sys.stderr)
+            return 1
+        from cranesched_tpu_torch.obs.trace import render_span_tree
+        for line in render_span_tree(rows[-1]):
+            print(line)
+        return 0
     if getattr(args, "slo", False):
         rows = []
         for slo in doc.get("slo") or ():
@@ -1654,6 +1665,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("cstats", help="scheduler cycle statistics")
     p.add_argument("--cycles", action="store_true",
                    help="print the last-N cycle trace ring as a table")
+    p.add_argument("--spans", action="store_true",
+                   help="print the newest cycle's span tree: each span's "
+                        "start, duration and self time in ms")
     p.add_argument("--metrics", nargs="?", const="", default=None,
                    metavar="PREFIX",
                    help="print the metric registry snapshot as a table; "

@@ -152,7 +152,7 @@ from cranesched_tpu_torch.obs.flight import FlightRecorder
 from cranesched_tpu_torch.obs.jobtrace import JobTraceRecorder
 from cranesched_tpu_torch.obs.metrics import REGISTRY as _OBS
 from cranesched_tpu_torch.obs.slo import SloEngine
-from cranesched_tpu_torch.obs.trace import CycleTraceRing, solve_span
+from cranesched_tpu_torch.obs.trace import CycleSpans, CycleTraceRing
 from cranesched_tpu_torch.ops.resources import DIM_CPU, DIM_MEM
 from cranesched_tpu_torch.topo.place import solve_greedy_topo
 
@@ -551,8 +551,9 @@ class JobScheduler:
         # job_id -> (new time limit, last send) for unconfirmed pushes
         self._limit_intents: dict[int, tuple[float, float]] = {}
         self._finalized_since_compact = 0
-        # WAL (fsyncs, groups) at the start of the in-flight cycle
-        self._wal_cycle_base = (0, 0)
+        # WAL (fsyncs, groups, bytes, records) at the start of the
+        # in-flight cycle
+        self._wal_cycle_base = (0, 0, 0, 0)
         # no-op short-circuit state: fingerprint + nearest time edge
         self._noop_fp: tuple | None = None
         self._noop_edge: float = float("inf")
@@ -611,6 +612,9 @@ class JobScheduler:
         # in-flight cycle's accumulator, pushed to the ring at its end;
         # consecutive skipped cycles coalesce into one ring row
         self.cycle_trace = CycleTraceRing(config.cycle_trace_ring)
+        # the cycle's span tree, written into its row (a server adds its
+        # own lock wait and plane advance before the root)
+        self.cycle_spans = CycleSpans()
         self._cur_trace: dict = {}
         self._skip_trace: dict | None = None
         # per-job lifecycle tracing + SLO plane (obs/jobtrace.py,
@@ -870,6 +874,7 @@ class JobScheduler:
             st["skips"] = st.get("skips", 0) + 1
             st["now"] = now
             st["total_ms"] = ms
+            st.update(self.cycle_spans.fields(), **self._wal_cycle_io())
         else:
             trace = {
                 "now": now, "queue_depth": len(self.pending),
@@ -877,7 +882,8 @@ class JobScheduler:
                 "prelude_ms": ms, "solve_ms": 0.0, "commit_ms": 0.0,
                 "dispatch_ms": 0.0, "total_ms": ms, "lock_held_ms": ms,
                 "candidates": 0, "placed": 0, "preempted": 0,
-                "backfilled": 0, "running": len(self.running)}
+                "backfilled": 0, "running": len(self.running),
+                **self.cycle_spans.fields(), **self._wal_cycle_io()}
             self.cycle_trace.push(trace)
             self._skip_trace = trace
         return []
@@ -2094,9 +2100,12 @@ class JobScheduler:
         release.  The last yielded closure drains the dispatch ring, so
         no dispatch is issued before its job's start record is
         durable."""
+        spans = self.cycle_spans
+        spans.begin()
         wal = self.wal
-        self._wal_cycle_base = ((wal.fsync_total, wal.groups_total)
-                                if wal is not None else (0, 0))
+        self._wal_cycle_base = ((wal.fsync_total, wal.groups_total,
+                                 wal.bytes_total, wal.records_total)
+                                if wal is not None else (0, 0, 0, 0))
         # introspection: per-cycle build attribution and the armed
         # profiler window's tick (cheap no-ops when idle)
         self._cycle_compile_base = introspect.total_compiles()
@@ -2114,6 +2123,7 @@ class JobScheduler:
             self._wal_flush()
             self._drain_dispatch_ring()
             self.flight.stamp("cycle_end")
+            spans.end()
 
     def _wal_begin(self) -> None:
         if self.wal is not None:
@@ -2121,7 +2131,17 @@ class JobScheduler:
 
     def _wal_flush(self) -> None:
         if self.wal is not None:
-            self.wal.commit_batch()
+            with self.cycle_spans.span("wal:flush"):
+                self.wal.commit_batch()
+
+    def _wal_cycle_io(self) -> dict:
+        """The WAL's bytes and records written since the cycle began."""
+        wal = self.wal
+        if wal is None:
+            return {"wal_bytes": 0, "wal_records": 0}
+        _f, _g, base_bytes, base_records = self._wal_cycle_base
+        return {"wal_bytes": wal.bytes_total - base_bytes,
+                "wal_records": wal.records_total - base_records}
 
     def _queue_dispatch(self, job: Job, node_ids: list[int]) -> None:
         """Ring entries capture the incarnation, the fencing epoch and
@@ -2177,9 +2197,10 @@ class JobScheduler:
     def _dispatch_phase(self):
         """The cycle's final yielded closure: drain the dispatch ring."""
         def run():
-            t0 = time.perf_counter()
-            n = self._drain_dispatch_ring()
-            return n, (time.perf_counter() - t0) * 1e3
+            with self.cycle_spans.span("dispatch"):
+                t0 = time.perf_counter()
+                n = self._drain_dispatch_ring()
+                return n, (time.perf_counter() - t0) * 1e3
 
         return run
 
@@ -2193,172 +2214,182 @@ class JobScheduler:
         _MET_PHASE.observe(ms / 1e3, phase="dispatch")
 
     def _cycle_body(self, now: float):
+        span = self.cycle_spans.span
         t0 = time.perf_counter()
         self._cur_trace = {
             "now": now, "queue_depth": len(self.pending),
             "solver": "", "solve_ms": 0.0,
             "preempted": 0, "backfilled": 0, "num_streams": 1,
+            **self.cycle_spans.fields(),
         }
         _MET_PENDING.set(len(self.pending))
         self._cycle_now = now
-        self.process_status_changes()
-        self._check_craned_timeouts(now)
-        self._check_alloc_timeouts(now)
-        self._drain_deferred_evictions(now)
-        self._renew_cancel_intents(now)
-        self.meta.purge_expired_reservations(now)
-        self._materialize_array_children(now)
+        with span("drain"):
+            with span("status_drain"):
+                self.process_status_changes()
+            with span("lifecycle"):
+                self._check_craned_timeouts(now)
+                self._check_alloc_timeouts(now)
+                self._drain_deferred_evictions(now)
+                self._renew_cancel_intents(now)
+                self.meta.purge_expired_reservations(now)
+                self._materialize_array_children(now)
         t_prelude = time.perf_counter()
         self.flight.stamp("prelude")
 
-        # no-op short-circuit: if no epoch moved since the last armed
-        # zero-placement solve and no time edge passed, this cycle would
-        # rebuild the identical inputs and place nothing
-        fp = self._cycle_fingerprint()
-        if (self.config.incremental and self._noop_fp is not None
-                and fp == self._noop_fp and now < self._noop_edge
-                and not self._dispatch_ring):
-            return self._skip_cycle(t0, now, "fingerprint")
-        self._cycle_fp0 = fp
-        self._noop_fp = None
-        self._cycle_usage_denied0 = (self.global_usage.denied
-                                     if self.global_usage is not None
-                                     else 0)
+        with span("candidates"):
+            # no-op short-circuit: if no epoch moved since the last armed
+            # zero-placement solve and no time edge passed, this cycle
+            # would rebuild the identical inputs and place nothing
+            fp = self._cycle_fingerprint()
+            if (self.config.incremental and self._noop_fp is not None
+                    and fp == self._noop_fp and now < self._noop_edge
+                    and not self._dispatch_ring):
+                return self._skip_cycle(t0, now, "fingerprint")
+            self._cycle_fp0 = fp
+            self._noop_fp = None
+            self._cycle_usage_denied0 = (self.global_usage.denied
+                                         if self.global_usage is not None
+                                         else 0)
 
-        self.stats["cycles"] += 1
-        _MET_CYCLES.inc()
-        candidates = self._pending_candidates(now)
-        if self.jobtrace is not None and candidates:
-            # first-sight "eligible" stamp per incarnation; the Job
-            # attribute guard keeps repeat cycles at one attribute probe
-            # per candidate
-            fresh = []
-            for job in candidates:
-                if getattr(job, "_trace_eligible", -1) != \
-                        job.requeue_count:
-                    job._trace_eligible = job.requeue_count
-                    fresh.append((job.job_id, job.requeue_count))
-            if fresh:
-                self.jobtrace.stamp_many("eligible", fresh, now)
-        if not candidates:
-            # an empty cycle does not enter the trace ring (an idle
-            # cluster would flush every interesting trace out of it)
-            self.stats["last_cycle_walltime"] = time.time()
-            self.stats["last_cycle"] = {
-                "prelude_ms": round((t_prelude - t0) * 1e3, 3),
-                "pending": 0, "started": 0,
-                "running": len(self.running)}
-            self._skip_trace = None
-            self._arm_noop(now)
-            return []
-        limit = self.config.schedule_batch_size
-        if len(candidates) > limit:
-            for job in candidates[limit:]:
-                job.pending_reason = PendingReason.PRIORITY
-            candidates = candidates[:limit]
-            if self._cand_rows is not None:
-                self._cand_rows = self._cand_rows[:limit]
+            self.stats["cycles"] += 1
+            _MET_CYCLES.inc()
+            candidates = self._pending_candidates(now)
+            if self.jobtrace is not None and candidates:
+                # first-sight "eligible" stamp per incarnation; the Job
+                # attribute guard keeps repeat cycles at one attribute
+                # probe per candidate
+                fresh = []
+                for job in candidates:
+                    if getattr(job, "_trace_eligible", -1) != \
+                            job.requeue_count:
+                        job._trace_eligible = job.requeue_count
+                        fresh.append((job.job_id, job.requeue_count))
+                if fresh:
+                    self.jobtrace.stamp_many("eligible", fresh, now)
+            if not candidates:
+                # an empty cycle does not enter the trace ring (an idle
+                # cluster would flush every interesting trace out of it)
+                self.stats["last_cycle_walltime"] = time.time()
+                self.stats["last_cycle"] = {
+                    "prelude_ms": round((t_prelude - t0) * 1e3, 3),
+                    "pending": 0, "started": 0,
+                    "running": len(self.running)}
+                self._skip_trace = None
+                self._arm_noop(now)
+                return []
+            limit = self.config.schedule_batch_size
+            if len(candidates) > limit:
+                for job in candidates[limit:]:
+                    job.pending_reason = PendingReason.PRIORITY
+                candidates = candidates[:limit]
+                if self._cand_rows is not None:
+                    self._cand_rows = self._cand_rows[:limit]
 
-        # snapshot + event capture window
-        self.meta.start_logging()
-        avail, total, alive = self.meta.snapshot()
+        with span("snapshot"):
+            # snapshot + event capture window
+            self.meta.start_logging()
+            avail, total, alive = self.meta.snapshot()
 
-        t_sort = time.perf_counter()
-        ordered = self._priority_sort(candidates, now)
-        t_batch = time.perf_counter()
-        for job in ordered:
-            # spec epoch for the lock-free solve window: _commit voids
-            # the placement of a job whose spec object changed mid-solve
-            job._plan_spec = job.spec
-        jobs_batch, max_nodes = self._build_batch(ordered, avail.shape[0],
-                                                  now)
-        cost0 = self._ledger.cost0(now, total.shape[0])
-        trace = self._cur_trace
-        trace["priority_ms"] = (t_batch - t_sort) * 1e3
-        trace["batch_ms"] = (time.perf_counter() - t_batch) * 1e3
+        with span("priority"):
+            t_sort = time.perf_counter()
+            ordered = self._priority_sort(candidates, now)
+        with span("batch"):
+            t_batch = time.perf_counter()
+            for job in ordered:
+                # spec epoch for the lock-free solve window: _commit
+                # voids the placement of a job whose spec object changed
+                # mid-solve
+                job._plan_spec = job.spec
+            jobs_batch, max_nodes = self._build_batch(
+                ordered, avail.shape[0], now)
+            cost0 = self._ledger.cost0(now, total.shape[0])
+            trace = self._cur_trace
+            trace["priority_ms"] = (t_batch - t_sort) * 1e3
+            trace["batch_ms"] = (time.perf_counter() - t_batch) * 1e3
 
-        # a cycle holding a packed or exclusive job takes the packed
-        # solve (immediate fit; such jobs get no backfill reservation)
-        orows = self._ordered_rows
-        vec = orows is not None and len(orows) == len(ordered)
-        if (bool(self._ptable.packed[orows].any()) if vec
-                else any(self._is_packed(j.spec) for j in ordered)):
-            state = make_cluster_state(avail, total, alive, cost0,
-                                       device=self.device)
-            pbatch = self._packed_batch(jobs_batch.dense(), ordered)
+            # a cycle holding a packed or exclusive job takes the packed
+            # solve (immediate fit; such jobs get no backfill
+            # reservation); a gang cycle under a topology the
+            # best-fit-block solve, without backfill this cycle
+            # (locality first for gangs)
+            orows = self._ordered_rows
+            vec = orows is not None and len(orows) == len(ordered)
+            packed = (bool(self._ptable.packed[orows].any()) if vec
+                      else any(self._is_packed(j.spec) for j in ordered))
+            gang = stage = False
+            if packed:
+                state = make_cluster_state(avail, total, alive, cost0,
+                                           device=self.device)
+                pbatch = self._packed_batch(jobs_batch.dense(), ordered)
+            else:
+                topo = self._active_topology()
+                if topo is not None:
+                    self._update_topo_fragmentation(topo, avail, total,
+                                                    alive)
+                gang = topo is not None and (
+                    bool((self._ptable.nnum[orows] > 1).any()) if vec
+                    else any(j.spec.node_num > 1 for j in ordered))
+                if gang:
+                    state = make_cluster_state(avail, total, alive, cost0,
+                                               device=self.device)
+                    dense = jobs_batch.dense()
+                    levels = topo.levels(self.device)
+
+        if packed:
             placements = yield from self._unlocked(
                 "packed",
                 lambda: solve_packed(state, pbatch, max_nodes=max_nodes)[0])
-            started = self._commit(ordered, placements, now,
-                                   tasks=placements.tasks)
-            started += self._try_preemption(ordered, now)
-            self._wal_flush()
-            self._record_cycle_stats(t0, t_prelude, candidates, started,
-                                     time.perf_counter(), "packed")
-            if self._dispatch_ring:
-                self._note_dispatch((yield self._dispatch_phase()))
-            return started
-
-        topo = self._active_topology()
-        if topo is not None:
-            self._update_topo_fragmentation(topo, avail, total, alive)
-        if topo is not None and (
-                bool((self._ptable.nnum[orows] > 1).any()) if vec
-                else any(j.spec.node_num > 1 for j in ordered)):
-            # a gang cycle under a topology: the best-fit-block solve,
-            # without backfill this cycle (locality first for gangs)
-            state = make_cluster_state(avail, total, alive, cost0,
-                                       device=self.device)
-            dense = jobs_batch.dense()
-            levels = topo.levels(self.device)
+            with span("commit"):
+                started = self._commit(ordered, placements, now,
+                                       tasks=placements.tasks)
+            solver_name = "packed"
+        elif gang:
             placements, _, info = yield from self._unlocked(
                 "topo", lambda: solve_greedy_topo(state, dense, levels,
-                                          max_nodes=max_nodes))
-            self._note_topo(topo, ordered, info)
-            started = self._commit(ordered, placements, now)
-            started += self._try_preemption(ordered, now)
-            self._wal_flush()
-            self._record_cycle_stats(t0, t_prelude, candidates, started,
-                                     time.perf_counter(), "topo")
-            if self._dispatch_ring:
-                self._note_dispatch((yield self._dispatch_phase()))
-            return started
-
-        if self.config.backfill:
-            if len(ordered) > max(1, self.config.backfill_max_jobs):
-                started = yield from self._split_backfill_phases(
-                    ordered, jobs_batch, avail, total, alive, cost0,
-                    max_nodes, now)
-                started += self._try_preemption(ordered, now)
-                self._wal_flush()
-                self._record_cycle_stats(t0, t_prelude, candidates, started,
-                                         time.perf_counter(),
-                                         "backfill-split")
-                if self._dispatch_ring:
-                    self._note_dispatch((yield self._dispatch_phase()))
-                return started
-            state = self._timed_state(now, avail, total, alive, cost0)
-            tbatch = self._timed_batch(jobs_batch.dense())
+                                                  max_nodes=max_nodes))
+            with span("commit"):
+                self._note_topo(topo, ordered, info)
+                started = self._commit(ordered, placements, now)
+            solver_name = "topo"
+        elif self.config.backfill and \
+                len(ordered) > max(1, self.config.backfill_max_jobs):
+            started = yield from self._split_backfill_phases(
+                ordered, jobs_batch, avail, total, alive, cost0,
+                max_nodes, now)
+            solver_name = "backfill-split"
+        elif self.config.backfill:
+            with span("timed_state"):
+                state = self._timed_state(now, avail, total, alive, cost0)
+                tbatch = self._timed_batch(jobs_batch.dense())
             placements = yield from self._unlocked(
                 "backfill", lambda: solve_backfill(
                     state, tbatch, edges=self._grid_edges,
                     max_nodes=max_nodes)[0])
-            started = self._commit(ordered, placements, now,
-                                   placements.start_bucket)
-            solver_name = "backfill"
+            with span("commit"):
+                started = self._commit(ordered, placements, now,
+                                       placements.start_bucket)
+            solver_name, stage = "backfill", True
         else:
             placements, solver_name = yield from self._unlocked(
                 "immediate", lambda: self._immediate_solve(
                     avail, total, alive, cost0, jobs_batch, max_nodes,
                     resident_ok=True))
-            started = self._commit(ordered, placements, now)
-        started += self._try_preemption(ordered, now)
-        # double buffer: copy the rows this commit dirtied ahead of the
-        # next cycle's resident patch
+            with span("commit"):
+                started = self._commit(ordered, placements, now)
+            stage = True
+        with span("preempt"):
+            started += self._try_preemption(ordered, now)
         self._wal_flush()
-        self._resident.stage()
-        self._record_cycle_stats(t0, t_prelude, candidates, started,
-                                 time.perf_counter(), solver_name)
+        if stage:
+            # double buffer: copy the rows this commit dirtied ahead of
+            # the next cycle's resident patch
+            with span("stage"):
+                self._resident.stage()
+        t_end = time.perf_counter()
+        with span("record"):
+            self._record_cycle_stats(t0, t_prelude, candidates, started,
+                                     t_end, solver_name)
         if self._dispatch_ring:
             self._note_dispatch((yield self._dispatch_phase()))
         return started
@@ -2371,24 +2402,28 @@ class JobScheduler:
         horizon of the post-reservation time map, so no tail placement
         can violate a head reservation.  Each part is committed after its
         own solve."""
+        span = self.cycle_spans.span
         bf_max = max(1, self.config.backfill_max_jobs)
-        head, tail = ordered[:bf_max], ordered[bf_max:]
-        # dense rows for the head only; the tail stays factored for the
-        # kernel, with the head's rows invalid so nothing places twice
-        head_batch = self._timed_batch(jobs_batch.dense(bf_max))
-        rows = torch.arange(jobs_batch.num_jobs, device=self.device)
-        tail_batch = jobs_batch.with_valid(jobs_batch.valid
-                                           & (rows >= bf_max))
-        state = self._timed_state(now, avail, total, alive, cost0)
+        with span("timed_state"):
+            head, tail = ordered[:bf_max], ordered[bf_max:]
+            # dense rows for the head only; the tail stays factored for
+            # the kernel, with the head's rows invalid so nothing places
+            # twice
+            head_batch = self._timed_batch(jobs_batch.dense(bf_max))
+            rows = torch.arange(jobs_batch.num_jobs, device=self.device)
+            tail_batch = jobs_batch.with_valid(jobs_batch.valid
+                                               & (rows >= bf_max))
+            state = self._timed_state(now, avail, total, alive, cost0)
         placements, tstate = yield from self._unlocked(
             "backfill", lambda: solve_backfill(
                 state, head_batch, edges=self._grid_edges,
                 max_nodes=max_nodes), part="head")
-        started = self._commit(head, placements, now,
-                               placements.start_bucket)
-
-        # pass 2: the tail against the tightest bucket of the horizon
-        self.meta.start_logging()   # a fresh event window for its commit
+        with span("commit:head"):
+            started = self._commit(head, placements, now,
+                                   placements.start_bucket)
+            # pass 2: the tail against the tightest bucket of the
+            # horizon, with a fresh event window for its commit
+            self.meta.start_logging()
 
         def tail_solve():
             # the min stays on the device and is never adopted as, or
@@ -2400,9 +2435,10 @@ class JobScheduler:
 
         out, _ = yield from self._unlocked("immediate", tail_solve,
                                            part="tail")
-        started += self._commit(tail, Placements(
-            placed=out.placed[bf_max:], nodes=out.nodes[bf_max:],
-            reason=out.reason[bf_max:]), now)
+        with span("commit:tail"):
+            started += self._commit(tail, Placements(
+                placed=out.placed[bf_max:], nodes=out.nodes[bf_max:],
+                reason=out.reason[bf_max:]), now)
         return started
 
     def _timed_state(self, now, avail, total, alive, cost0
@@ -2660,16 +2696,17 @@ class JobScheduler:
     def _traced_solve(self, label: str, fn, part: str | None = None):
         """Wrap a yielded solve closure: time it, settling the device
         work before the clock stops (otherwise the commit's read-back
-        would absorb the kernel time), inside a ``crane:solve:<label>``
-        profiler span.  A split cycle's solves also record their own
-        time as ``solve_<part>_ms``."""
+        would absorb the kernel time), inside the cycle's
+        ``solve:<label>[:<part>]`` span.  A split cycle's solves also
+        record their own time as ``solve_<part>_ms``."""
         trace = self._cur_trace
+        name = f"solve:{label}" + (f":{part}" if part else "")
 
         def run():
             t0 = time.perf_counter()
             # the cycle's prelude ends when the solve starts
             trace.setdefault("_prelude_end", t0)
-            with solve_span(f"crane:solve:{label}"):
+            with self.cycle_spans.span(name):
                 out = fn()
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
@@ -2716,7 +2753,7 @@ class JobScheduler:
             "patch_overlap": bool(res.last_overlap) if mode else False,
         }
         wal = self.wal
-        base_fsync, base_groups = self._wal_cycle_base
+        base_fsync, base_groups, _b, _r = self._wal_cycle_base
         wal_fsyncs = wal.fsync_total - base_fsync if wal is not None else 0
         wal_groups = (wal.groups_total - base_groups
                       if wal is not None else 0)
@@ -2746,6 +2783,7 @@ class JobScheduler:
             lock_held_ms=round(prelude_ms + commit_ms, 3),
             wal_fsyncs=wal_fsyncs,
             wal_groups=wal_groups,
+            **self._wal_cycle_io(),
             candidates=len(candidates),
             placed=len(started),
             dirty_jobs=self._ptable.last_dirty,

@@ -279,6 +279,10 @@ class WriteAheadLog:
         self._group_buf: list[tuple[int, str]] = []
         self.fsync_total = 0    # actual os.fsync calls (fsync=True only)
         self.groups_total = 0   # non-empty group flushes
+        # what the appends wrote to the file: records and bytes
+        # (compaction's rewrite is not an append)
+        self.records_total = 0
+        self.bytes_total = 0
         self._fh: IO[str] = open(path, "a", encoding="utf-8")
 
     @staticmethod
@@ -326,6 +330,8 @@ class WriteAheadLog:
             return
         self._fh.write(line + "\n")
         self._fh.flush()
+        self.records_total += 1
+        self.bytes_total += len(line) + 1
         if self.fsync:
             os.fsync(self._fh.fileno())
             self.fsync_total += 1
@@ -363,8 +369,11 @@ class WriteAheadLog:
             return
         buf = self._group_buf
         self._group_buf = []
-        self._fh.write("".join(line + "\n" for _seq, line in buf))
+        data = "".join(line + "\n" for _seq, line in buf)
+        self._fh.write(data)
         self._fh.flush()
+        self.records_total += len(buf)
+        self.bytes_total += len(data)
         if self.fsync:
             os.fsync(self._fh.fileno())
             self.fsync_total += 1

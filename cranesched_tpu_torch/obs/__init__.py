@@ -4,9 +4,9 @@ torch counterparts where the JAX package reaches JAX):
 - ``metrics.py``    process-wide registry of counters / gauges /
                     histograms with Prometheus text exposition and a
                     stdlib HTTP endpoint.
-- ``trace.py``      bounded ring of structured per-cycle traces plus the
-                    ``torch.profiler.record_function`` span around solve
-                    closures.
+- ``trace.py``      bounded ring of structured per-cycle traces and the
+                    cycle's span tree, written into each row (and into a
+                    running ``torch.profiler`` capture).
 - ``events.py``     bounded ring of typed, severity-tagged cluster
                     events (node flaps, requeues, preemptions, SLO
                     breaches, steady-state rebuilds).
@@ -57,6 +57,6 @@ from cranesched_tpu_torch.obs.slo import (  # noqa: F401
     SloSpec,
 )
 from cranesched_tpu_torch.obs.trace import (  # noqa: F401
+    CycleSpans,
     CycleTraceRing,
-    solve_span,
 )

@@ -8,7 +8,9 @@ neither the phase that hung nor the stack it hung on:
 
 * :class:`FlightRecorder` -- a bounded ring of recent phase stamps (the
   scheduler stamps cycle_begin/prelude/commit/dispatch/cycle_end per
-  cycle; ~6 appends, microseconds) plus a stall sentry the cycle loop
+  cycle; ~6 appends, microseconds; each on the wall clock and on
+  ``perf_counter``, the clock of the cycle's spans in its trace row, so
+  a stall lines up with them) plus a stall sentry the cycle loop
   arms around every cycle.  If the deadline passes while armed, the
   sentry captures ``sys._current_frames()`` for every thread into
   ``last_stall`` alongside the ring tail -- the "what was the scheduler
@@ -59,9 +61,6 @@ PROBE_PHASES = ("env_preflight", "torch_import", "cuda_init",
                 "device_enum", "kernel_build", "first_launch",
                 "first_sync", "steady_state")
 
-_MET_STAMPS = _OBS.counter(
-    "crane_flight_stamps_total",
-    "phase stamps appended to the flight-recorder ring")
 _MET_STALLS = _OBS.counter(
     "crane_flight_stalls_total",
     "stall-sentry firings (armed deadline passed; stacks captured)")
@@ -74,8 +73,6 @@ _MET_CACHE_MISSES = _OBS.counter(
 _MET_CACHE_ENTRIES = _OBS.gauge(
     "crane_kernel_cache_entries",
     "built libraries in the build cache directories")
-
-_STAMPS_CELL = _MET_STAMPS.labels()
 
 
 def dump_all_stacks() -> dict[str, list[str]]:
@@ -124,14 +121,15 @@ class FlightRecorder:
 
     def stamp(self, phase: str, detail: str = "",
               t: float | None = None) -> None:
-        """Append one phase stamp (wall time, phase, detail)."""
+        """Append one phase stamp: wall time, ``perf_counter`` (the clock
+        of the cycle's spans, obs/trace.py), phase, detail."""
         t0 = time.perf_counter()
-        rec = {"t": time.time() if t is None else t, "phase": phase}
+        rec = {"t": time.time() if t is None else t, "perf_counter": t0,
+               "phase": phase}
         if detail:
             rec["detail"] = detail
         with self._lock:
             self._ring.append(rec)
-        _STAMPS_CELL.inc()
         self.self_time_s += time.perf_counter() - t0
 
     # -- the stall sentry --
@@ -185,7 +183,8 @@ class FlightRecorder:
         stacks = dump_all_stacks()
         with self._lock:
             phases = list(self._ring)[-16:]
-        stall = {"time": time.time(), "label": label,
+        stall = {"time": time.time(), "perf_counter": time.perf_counter(),
+                 "label": label,
                  "phases": phases, "stacks": stacks}
         with self._lock:
             self.last_stall = stall

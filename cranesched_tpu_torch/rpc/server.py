@@ -1125,11 +1125,22 @@ class CtldServer:
         deny = self._deny_admin(self._ident(context))
         if deny:
             return pb.TickReply(now=request.now, error=deny)
+        t_req = time.perf_counter()
         with self._lock:
-            if self.sim is not None:
-                self.sim.advance_to(request.now)
+            self._advance_plane(t_req, request.now)
             started = self.scheduler.schedule_cycle(request.now)
         return pb.TickReply(started=started, now=request.now)
+
+    def _advance_plane(self, t_req: float, now: float) -> None:
+        """Under the lock, before a cycle: the simulated plane's advance
+        to ``now``, and the wait for the lock since ``t_req`` and the
+        advance as spans of the cycle's row."""
+        spans = self.scheduler.cycle_spans
+        t_lock = time.perf_counter()
+        spans.before("lock_wait", t_req, t_lock)
+        if self.sim is not None:
+            self.sim.advance_to(now)
+            spans.before("sim_advance", t_lock, time.perf_counter())
 
     # ---- HA + summary ----
 
@@ -1844,9 +1855,9 @@ class CtldServer:
         closures outside it."""
         gen = None
         try:
+            t_req = time.perf_counter()
             with self._lock:
-                if self.sim is not None:
-                    self.sim.advance_to(now)
+                self._advance_plane(t_req, now)
                 if self.scheduler.fed is not None:
                     # a dead arbiter's leases self-expire here, so
                     # reserved-but-never-confirmed nodes rejoin the

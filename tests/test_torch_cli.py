@@ -321,6 +321,38 @@ def test_cstats_cli_cycles_and_metrics(capsys):
     both(scenario)
 
 
+def test_cstats_spans_prints_the_newest_cycle_tree(capsys):
+    """The port's ``cstats --spans`` (the JAX CLI has no such flag): the
+    newest trace row's span tree, one line a span, indented by depth,
+    with its start, duration and self time; before any cycle there is
+    nothing to print."""
+    with Ctld(PORT) as c:
+        rc, out, err = run_cli(tcli, capsys, c.addr, "cstats", "--spans")
+        assert (rc, out) == (1, "") and "no cycle spans" in err
+        for _ in range(3):
+            c.client.submit(job_spec())
+        c.client.tick(0.0)
+        row = c.sched.cycle_trace.snapshot(last=1)[0]
+        rc, out, err = run_cli(tcli, capsys, c.addr, "cstats", "--spans")
+    assert (rc, err) == (0, "")
+    lines = out.splitlines()
+    assert lines[0].startswith(f"cycle {row['cycle']} now=0.0 ")
+    assert lines[1].split() == ["SPAN", "START_MS", "MS", "SELF_MS"]
+    spans = row["spans"]
+    assert [ln.split()[0] for ln in lines[2:]] == [s[0] for s in spans]
+    assert [s[0] for s in spans[:3]] == ["lock_wait", "sim_advance",
+                                         "cycle"]
+    for ln, (name, parent, start, end) in zip(lines[2:], spans):
+        depth = 0
+        while parent >= 0:
+            depth, parent = depth + 1, spans[parent][1]
+        assert ln.startswith("  " * depth + name + " ")
+        _name, t, ms, self_ms = ln.split()
+        assert float(t) == pytest.approx(start, abs=1e-3)
+        assert float(ms) == pytest.approx(end - start, abs=2e-3)
+        assert 0.0 <= float(self_ms) <= float(ms) + 1e-3
+
+
 # ---------------------------------------------------------------------------
 # tests/test_flight.py:665, :696, :721 (cflight)
 # ---------------------------------------------------------------------------

@@ -296,8 +296,8 @@ def test_node_plane_imports_without_torch():
 
 
 CLI_PLANE = ("cli", "rpc.client", "rpc.cfored", "rpc.crane_pb2",
-             "obs.jobtrace", "obs.fedobs", "fed.query", "utils.pki",
-             "utils.gres")
+             "obs.jobtrace", "obs.fedobs", "obs.trace", "fed.query",
+             "utils.pki", "utils.gres")
 
 _CLI_CHILD = textwrap.dedent("""
     import contextlib, importlib, io, json, sys, tempfile, os

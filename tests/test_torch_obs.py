@@ -51,15 +51,21 @@ def test_cycle_trace_ring_matches_jax(size):
 
 
 def test_solve_span_is_a_profiler_span():
-    """The port's span is torch.profiler's record_function: a CPU capture
-    shows it by name."""
+    """A span of the port's cycle recorder is torch.profiler's
+    record_function while a capture runs: a CPU capture shows a solve
+    span by its name, ``crane:solve:<label>``, nested in its cycle."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    spans = ttrace.CycleSpans()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with ttrace.solve_span("crane:solve:test"):
+        spans.begin()
+        with spans.span("solve:test"):
             torch.ones(4).sum()
-    assert any(e.name == "crane:solve:test" for e in prof.events())
+        spans.end()
+    names = {e.name for e in prof.events()}
+    assert {"crane:cycle", "crane:solve:test"} <= names
+    assert [s[:2] for s in spans.spans] == [["cycle", -1], ["solve:test", 0]]
 
 
 # ---------------- the event log ----------------

@@ -99,10 +99,13 @@ WALL = ({"TokenReply.token", "CaptureProfileReply.dir",
 # recorder's wall-clock phase ring
 OPAQUE = {"stats.metrics", "stats.flight"}
 # what the port's trace rows carry beyond the JAX package's: finer
-# timings, the scheduler's device and greedy_place's launches
+# timings, the scheduler's device and greedy_place's launches, the span
+# tree and the WAL's bytes and records
 PORT_ONLY = {"stats.cycle_trace": ("batch_ms", "priority_ms",
                                    "solve_head_ms", "solve_tail_ms",
-                                   "device", "kernel_launches")}
+                                   "device", "kernel_launches", "cycle",
+                                   "t0", "spans", "wal_bytes",
+                                   "wal_records")}
 
 
 def _typed(x):
