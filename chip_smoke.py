@@ -20,7 +20,11 @@ Phases (any failure exits non-zero and prints no result):
    the kernel's 8 keys per thread (K = 32), unbalanced streams, streams
    that own no alive node or no node, and small edge cases; kernel and
    plain times, threads per block, shared-memory bytes and the path
-   taken;
+   taken; then the backfill head kernel (``csrc/backfill_head.cu``) at
+   the benchmark's shapes (N = 10,000, T = 64, R = 3, K = 2, J = 1,024)
+   against ``solve_backfill_plain`` on the card, bitwise on the
+   placements and the post-solve time map and costs, with both sides'
+   times, and again on a week's geometric grid and contended;
 4. the attribution kernels (``tools/kattr.py``'s variants) at J =
    100,000, N = 10,000, R = 3, BJ = 256: each variant against its plain
    version on the card, bitwise, and with no feasible node and with
@@ -736,6 +740,41 @@ def kernel_vs_plain(name, total, alive, cost, jobs, job_class, masks,
     return out
 
 
+def head_vs_plain(label, *args, **kwargs):
+    """``tests/backfill_head_cases.py``'s kernel-vs-plain check of the
+    backfill head on the card, printed; returns its row."""
+    import os
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    try:
+        import backfill_head_cases
+    finally:
+        sys.path.pop(0)
+    try:
+        row = backfill_head_cases.head_vs_plain(label, *args, **kwargs)
+    except AssertionError as e:
+        raise RuntimeError(f"chip_smoke check failed: {e}") from None
+    print(f"[head:{label}] kernel == plain (bitwise) {json.dumps(row)}",
+          flush=True)
+    return row
+
+
+def phase_backfill_head():
+    """The backfill head kernel at the benchmark's shapes (N = 10,000, T =
+    64, R = 3, K = 2, J = 1,024), held bitwise against its plain loop and
+    timed beside it, then on a week's geometric grid and contended; its
+    bound: the time map read and written once and the J part_mask rows,
+    over HBM_BYTES_PER_S."""
+    res = head_vs_plain("cell", 11, N_NODES, 64, 1024, 2, timed=True)
+    res["bound_ms"] = (2 * N_NODES * 64 * 3 * 4 + 1024 * N_NODES) \
+        / HBM_BYTES_PER_S * 1e3
+    head_vs_plain("geometric", 12, N_NODES, 64, 1024, 2,
+                  horizon=7 * 86400)
+    head_vs_plain("contended", 13, N_NODES, 64, 1024, 2, contended=True)
+    return res
+
+
 def random_classes(rng, n_classes, n, share=0.05):
     """``n_classes`` overlapping random class masks over n nodes, each
     node in a class with probability ``share``, every node in some."""
@@ -1201,8 +1240,9 @@ def phase_backfill():
                   qos_priority=1, sim_runtime=300.0)
     rows = []
     now = 100.0
-    # the main path's launch count: zeroed just before, read just after
+    # the main path's launch counts: zeroed just before, read just after
     g.greedy_place.launches = 0
+    st.backfill_head.launches = 0
     for cycle in range(2):
         cur["cycle"] = cycle
         if cycle:
@@ -1215,6 +1255,7 @@ def phase_backfill():
                   f" +{TOPUP_JOBS} submitted, +{BIG_GANGS} high-QoS gangs "
                   "of 8 x 32 CPUs on p0", flush=True)
         before = g.greedy_place.launches
+        head_before = st.backfill_head.launches
         t1 = time.perf_counter()
         started = sched.schedule_cycle(now=now)
         wall = time.perf_counter() - t1
@@ -1223,6 +1264,15 @@ def phase_backfill():
               f"{label} cycle {cycle}: kernel launched "
               f"{g.greedy_place.launches - before} times (want once, for "
               "the tail)")
+        head_launched = st.backfill_head.launches - head_before
+        check(head_launched == 1,
+              f"{label} cycle {cycle}: the head kernel launched "
+              f"{head_launched} times (want once)")
+        row_launches = sched.cycle_trace.snapshot()[-1][
+            "head_kernel_launches"]
+        check(row_launches == 1,
+              f"{label} cycle {cycle}: trace row head_kernel_launches "
+              f"{row_launches}")
         check(last["solver"] == "backfill-split",
               f"{label} cycle {cycle}: solver {last['solver']}")
         check(len(started) > 0, f"{label} cycle {cycle}: placed nothing")
@@ -1249,9 +1299,11 @@ def phase_backfill():
               f"{last['solve_tail_ms']:.1f}ms backfilled "
               f"{last['backfilled']} future-start reasons {reasons} "
               f"stats {json.dumps(last)}", flush=True)
-    launches = g.greedy_place.launches
-    check(launches == len(rows),
-          f"{label}: {launches} launches for {len(rows)} cycles")
+    launches, head_launches = g.greedy_place.launches, \
+        st.backfill_head.launches
+    check(launches == len(rows) and head_launches == len(rows),
+          f"{label}: {launches} greedy and {head_launches} head launches "
+          f"for {len(rows)} cycles")
 
     # each cycle's head against the time-axis solve on the CPU
     for cycle in range(2):
@@ -1280,7 +1332,7 @@ def phase_backfill():
     # the first cycle's tail against the kernel's plain version
     cpu_check(f"{label} first tail", plain_check, record["tail_out"],
               *record["tail_in"])
-    return rows, launches
+    return rows, launches, head_launches
 
 
 def cycle_once(sched, now, label):
@@ -1508,6 +1560,7 @@ def phase_preempt(backfill: bool):
         SchedulerConfig,
     )
     from cranesched_tpu_torch.models import gpu_solver as g
+    from cranesched_tpu_torch.models import solver_time as st
     from cranesched_tpu_torch.models.preempt import solve_preempt
     from cranesched_tpu_torch.models.preempt_time import solve_preempt_timed
 
@@ -1547,6 +1600,7 @@ def phase_preempt(backfill: bool):
     print(f"[cycle:{label}] setup {time.perf_counter() - t0:.1f}s "
           f"({len(sched.pending)} pending: {kinds})", flush=True)
     g.greedy_place.launches = 0
+    st.backfill_head.launches = 0
     started0, last0 = cycle_once(sched, 100.0, label)
     check(len(started0) > 0, f"{label}: cold cycle placed nothing")
     check(last0["preempted"] == 0, f"{label}: cold cycle preempted")
@@ -1685,7 +1739,13 @@ def phase_preempt(backfill: bool):
                for last in rows)
     check(g.greedy_place.launches == want,
           f"{label}: {g.greedy_place.launches} kernel launches, want {want}")
-    return rows, g.greedy_place.launches
+    # and one launch of the head kernel a backfill cycle
+    want = sum(last["solver"] in ("backfill", "backfill-split")
+               for last in rows)
+    check(st.backfill_head.launches == want,
+          f"{label}: {st.backfill_head.launches} head kernel launches, "
+          f"want {want}")
+    return rows, g.greedy_place.launches, st.backfill_head.launches
 
 
 def lifecycle_counts():
@@ -5619,6 +5679,7 @@ def run() -> int:
 
     # 3. kernel vs plain
     kres = timed("kernel-vs-plain", phase_kernels)
+    head = timed("backfill-head kernel-vs-plain", phase_backfill_head)
 
     # 4. the attribution kernels and the attribution tool's path
     ares = timed("kattr", phase_attribution)
@@ -5631,7 +5692,9 @@ def run() -> int:
         paths["immediate"] += n
 
     # 6. the default path: split backfill cycles
-    rows, paths["backfill_tail"] = timed("backfill", phase_backfill)
+    head_paths = {}
+    rows, paths["backfill_tail"], head_paths["backfill"] = timed(
+        "backfill", phase_backfill)
     cycles += rows
     ref_commit_ms = rows[0]["commit_ms"]
 
@@ -5644,11 +5707,13 @@ def run() -> int:
 
     # 9. preemption, with backfill (timed what-if) and without
     for backfill in (True, False):
-        rows, n = timed(f"preempt backfill={backfill}", phase_preempt,
-                        backfill)
+        rows, n, n_head = timed(f"preempt backfill={backfill}",
+                                phase_preempt, backfill)
         cycles += rows
         paths["preempt_" + ("backfill_tail" if backfill
                             else "immediate")] = n
+        if backfill:
+            head_paths["preempt_backfill"] = n_head
 
     # 10. the job lifecycle and a restart from the WAL
     rows, paths["lifecycle"], life = timed("lifecycle", phase_lifecycle,
@@ -5764,6 +5829,26 @@ def run() -> int:
         "global_state_case": {f: kres["global"][f] for f in (
             "J", "owned", "threads", "smem_bytes", "state", "bits")},
     }]
+    kernels.append({
+        "name": "backfill_head",
+        "route": "cuda",
+        "source": "cranesched_tpu_torch/csrc/backfill_head.cu",
+        "replaces": None,
+        "jax_function": "cranesched_tpu.models.solver_time.solve_backfill",
+        "launches": sum(head_paths.values()),
+        "launches_by_path": head_paths,
+        "match": "bitwise",
+        "max_abs_err": 0,
+        "ms": head["kernel_ms"],
+        "plain_ms": head["plain_ms"],
+        "plain_device": "cuda",
+        "bound_ms": head["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shapes": {f: head[f] for f in ("N", "T", "J", "K")},
+        "launch": {f: head[f] for f in ("blocks", "slice", "words", "state",
+                                        "smem_bytes")},
+    })
     for variant in ("floor", "bcast", "onemin", "select"):
         a = ares[variant]
         kernels.append({

@@ -143,6 +143,7 @@ from cranesched_tpu_torch.models.solver_time import (
     TimedClusterState,
     TimedJobBatch,
     TimeGrid,
+    backfill_head,
     make_timed_state,
     solve_backfill,
 )
@@ -632,8 +633,10 @@ class JobScheduler:
         # attribution is delta-based off the process-wide counter; the
         # profiler window is ticked at cycle boundaries
         self._cycle_compile_base = introspect.total_compiles()
-        # greedy_place's launches in this cycle (a delta off its count)
+        # greedy_place's and backfill_head's launches in this cycle (deltas
+        # off their counts)
         self._cycle_launch_base = greedy_place.launches
+        self._cycle_head_base = backfill_head.launches
         self.profiler_window = introspect.ProfilerWindow(
             event_sink=lambda type, sev, detail="": self.events.emit(
                 type, sev, detail=detail),
@@ -2110,6 +2113,7 @@ class JobScheduler:
         # profiler window's tick (cheap no-ops when idle)
         self._cycle_compile_base = introspect.total_compiles()
         self._cycle_launch_base = greedy_place.launches
+        self._cycle_head_base = backfill_head.launches
         self.profiler_window.tick()
         self.flight.stamp("cycle_begin")
         self._wal_begin()
@@ -2788,9 +2792,12 @@ class JobScheduler:
             placed=len(started),
             dirty_jobs=self._ptable.last_dirty,
             dirty_nodes=self.meta.last_snapshot_dirty,
-            # where the cycle ran, and greedy_place's launches in it
+            # where the cycle ran, and greedy_place's and backfill_head's
+            # launches in it
             device=self.device.type,
             kernel_launches=greedy_place.launches - self._cycle_launch_base,
+            head_kernel_launches=(backfill_head.launches
+                                  - self._cycle_head_base),
         )
         if mode is not None:
             trace.update(resident=mode, h2d_rows=res.last_h2d_rows,

@@ -35,7 +35,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 # name -> source file under csrc/
 SOURCES = {"greedy_place": "greedy_place.cu",
-           "kattr_variants": "kattr_variants.cu"}
+           "kattr_variants": "kattr_variants.cu",
+           "backfill_head": "backfill_head.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

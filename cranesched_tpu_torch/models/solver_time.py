@@ -16,20 +16,31 @@ The time axis is a grid of buckets with boundary times ``edges[T+1]``
   ``[s, e)`` of their rows.  Start bucket 0 dispatches now; a later start
   holds a reservation that lower-priority jobs cannot violate.
 
-``solve_backfill`` is the JAX package's ``lax.scan`` written as a per-job
-PyTorch loop, bit for bit.  The loop has no host synchronisation: every
-decision stays a tensor, so on the card the whole head of a cycle is
-queued without a round trip.  State is updated in place.
+``solve_backfill`` runs the JAX package's ``lax.scan`` bit for bit.  On
+the card it is ONE launch of the hand-written kernel
+``csrc/backfill_head.cu`` (``backfill_head``, laid out by
+``head_launch_plan``); on the CPU it is ``solve_backfill_plain``, the scan
+written as a per-job PyTorch loop, which the tests hold against the JAX
+package and the kernel is held against.  State is updated in place.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from cranesched_tpu_torch.device import resolve_device
+from cranesched_tpu_torch.models.gpu_solver import (
+    _K_MAX,
+    _MAX_K,
+    _WARPS,
+    SMEM_LIMIT,
+    _a16,
+)
 from cranesched_tpu_torch.models.solver import (
     COST_INF,
     apply_placement,
@@ -271,18 +282,12 @@ def _place_one_timed(time_avail, cost, cpu_total, alive, edges, starts,
     return placed_ok, s, torch.where(sel, idx, -1), reason
 
 
-def solve_backfill(state: TimedClusterState, jobs: TimedJobBatch,
-                   edges=None, max_nodes: int = 1
-                   ) -> tuple[TimedPlacements, TimedClusterState]:
-    """Greedy in-priority-order scheduling over the time grid.
-
-    ``edges`` are the grid's boundary seconds (``TimeGrid.edges_tensor``);
-    None means a unit grid (bucket = 1 s).  Every schedulable job gets a
-    start bucket and nodes; jobs that must wait hold reservations that
-    later jobs cannot violate.  ``state.time_avail`` and ``state.cost``
-    are updated in place and ``state`` is returned.  (The reference
-    unrolls ``group`` jobs per scan step; that is a schedule of the same
-    sequential placement and has no counterpart here.)"""
+def solve_backfill_plain(state: TimedClusterState, jobs: TimedJobBatch,
+                         edges=None, max_nodes: int = 1
+                         ) -> tuple[TimedPlacements, TimedClusterState]:
+    """The plain version of ``backfill_head``: ``solve_backfill`` as a
+    per-job PyTorch loop, one ``_place_one_timed`` a job.  Same contract
+    as ``solve_backfill``; the CPU route and the kernel's yardstick."""
     dev = state.time_avail.device
     n, T, _ = state.time_avail.shape
     k = min(max_nodes, n)
@@ -306,3 +311,158 @@ def solve_backfill(state: TimedClusterState, jobs: TimedJobBatch,
         reason[j] = why
     return TimedPlacements(placed=placed, start_bucket=start, nodes=nodes,
                            reason=reason), state
+
+
+def _head_kernel():
+    from cranesched_tpu_torch.kernels.build import load
+
+    fn = load("backfill_head").backfill_head_launch
+    if fn.argtypes is None:
+        # without argtypes ctypes passes each pointer as a 32-bit int
+        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+class HeadPlan(NamedTuple):
+    """How ``backfill_head.cu`` lays out one solve: ``blocks`` blocks of
+    ``gpu_solver.THREADS`` threads, block b owning nodes ``[b * slice,
+    (b + 1) * slice)``; ``words`` 64-bit fit-mask words a node; where the
+    owned time map and costs live (``"shared"`` or ``"global"``); and the
+    dynamic shared-memory bytes of a block."""
+    blocks: int
+    slice: int
+    words: int
+    state: str
+    smem_bytes: int
+
+
+def head_smem_bytes(slice_: int, T: int, R: int, K: int,
+                    state: bool) -> int:
+    """``head_layout(...).total`` of ``backfill_head.cu``: block_topk's
+    keys, the first start (2 parities), the counts, edges and ends, K
+    offered keys and their ranks, and per owned node a byte of
+    eligibility, its fit words and a key; with ``state``, the owned rows
+    of the time map and the owned costs."""
+    words = -(-T // 64)
+    total = (_a16(8 * 2 * _K_MAX * _WARPS) + _a16(4 * 2)
+             + 2 * _a16(4 * (T + 1)) + _a16(4 * T) + _a16(8 * K)
+             + _a16(4 * K) + _a16(slice_) + _a16(8 * slice_ * words)
+             + _a16(8 * slice_))
+    if state:
+        total += _a16(4 * slice_ * T * R) + _a16(4 * slice_)
+    return total
+
+
+def head_launch_plan(N: int, T: int, R: int, K: int, sms: int) -> HeadPlan:
+    """Pick the kernel's layout from the shapes and the card's SM count,
+    before the launch: one block per SM at most, each owning an equal
+    slice of the nodes (no block owns none), the owned rows in shared
+    memory when they fit, else read in place from device memory by the
+    same kernel.  Raises on a shape the kernel does not take."""
+    if N < 1 or T < 1 or R < 1 or sms < 1:
+        raise ValueError(f"backfill_head takes N, T, R >= 1 on a card with "
+                         f"SMs (got N={N}, T={T}, R={R}, {sms} SMs)")
+    if not 0 <= K <= _MAX_K:
+        raise ValueError(f"K={K} outside [0, {_MAX_K}]")
+    slice_ = -(-N // min(sms, N))
+    blocks = -(-N // slice_)
+    state = head_smem_bytes(slice_, T, R, K, True) <= SMEM_LIMIT
+    smem = head_smem_bytes(slice_, T, R, K, state)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"backfill_head: {slice_} nodes a block at T={T}, K={K} need "
+            f"{smem} bytes of shared memory beside the time map, above "
+            f"{SMEM_LIMIT}")
+    return HeadPlan(blocks, slice_, -(-T // 64),
+                    "shared" if state else "global", smem)
+
+
+def _head_input(t, dtype, dev, name) -> torch.Tensor:
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, the time map on {dev}")
+    return t.to(dtype).contiguous()
+
+
+def backfill_head(state: TimedClusterState, jobs: TimedJobBatch, edges,
+                  k: int) -> TimedPlacements:
+    """Kernel wrapper: the whole time-axis solve of ``jobs`` in one launch
+    of ``csrc/backfill_head.cu`` on the current stream, ``time_avail`` and
+    ``cost`` updated in place (they must be contiguous int32 on the card).
+    ``edges`` int32[T + 1] on the card, ``k`` the solve's gang bound
+    (``min(max_nodes, N)``).  Outputs are allocated here;
+    ``backfill_head.launches`` counts launches.  Raises on a shape outside
+    ``head_launch_plan`` or a launch the card refuses."""
+    ta, cost = state.time_avail, state.cost
+    dev = ta.device
+    for name, t in (("time_avail", ta), ("cost", cost)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32 (it is "
+                             "updated in place)")
+    n, T, r = ta.shape
+    J = jobs.req.shape[0]
+    if cost.shape != (n,) or tuple(jobs.req.shape) != (J, r) \
+            or tuple(jobs.part_mask.shape) != (J, n) \
+            or edges.shape != (T + 1,):
+        raise ValueError("cost, req, part_mask or edges disagree with the "
+                         f"time map [{n}, {T}, {r}]")
+    plan = head_launch_plan(n, T, r, k, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    placed = torch.empty(J, dtype=torch.bool, device=dev)
+    start = torch.empty(J, dtype=torch.int32, device=dev)
+    nodes = torch.empty((J, k), dtype=torch.int32, device=dev)
+    reason = torch.empty(J, dtype=torch.int32, device=dev)
+    out = TimedPlacements(placed=placed, start_bucket=start, nodes=nodes,
+                          reason=reason)
+    if J == 0:
+        return out
+    ins = [_head_input(x, dt, dev, name) for name, x, dt in (
+        ("cpu_total", cpu_total_of(state), torch.float32),
+        ("alive", state.alive, torch.bool),
+        ("edges", edges, torch.int32),
+        ("req", jobs.req, torch.int32),
+        ("node_num", jobs.node_num, torch.int32),
+        ("time_limit", jobs.time_limit, torch.int32),
+        ("valid", jobs.valid, torch.bool),
+        ("part_mask", jobs.part_mask, torch.bool))]
+    cnt = torch.zeros(2 * (T + 1), dtype=torch.int32, device=dev)
+    pub = torch.empty(plan.blocks * max(k, 1), dtype=torch.int64,
+                      device=dev)
+    rc = _head_kernel()(
+        ta.data_ptr(), cost.data_ptr(), *(x.data_ptr() for x in ins),
+        placed.data_ptr(), start.data_ptr(), nodes.data_ptr(),
+        reason.data_ptr(), cnt.data_ptr(), pub.data_ptr(), n, T, r, J, k,
+        plan.blocks, plan.slice, plan.state == "shared", plan.smem_bytes,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"backfill_head launch failed: CUDA error {rc} "
+                           f"({plan})")
+    backfill_head.launches += 1
+    return out
+
+
+backfill_head.launches = 0
+
+
+def solve_backfill(state: TimedClusterState, jobs: TimedJobBatch,
+                   edges=None, max_nodes: int = 1
+                   ) -> tuple[TimedPlacements, TimedClusterState]:
+    """Greedy in-priority-order scheduling over the time grid.
+
+    ``edges`` are the grid's boundary seconds (``TimeGrid.edges_tensor``);
+    None means a unit grid (bucket = 1 s).  Every schedulable job gets a
+    start bucket and nodes; jobs that must wait hold reservations that
+    later jobs cannot violate.  ``state.time_avail`` and ``state.cost``
+    are updated in place and ``state`` is returned.  On the card the
+    solve is one launch of ``backfill_head``; on the CPU it is
+    ``solve_backfill_plain``.  (The reference unrolls ``group`` jobs per
+    scan step; that is a schedule of the same sequential placement and
+    has no counterpart here.)"""
+    dev = state.time_avail.device
+    if dev.type == "cpu":
+        return solve_backfill_plain(state, jobs, edges, max_nodes)
+    n, T, _ = state.time_avail.shape
+    edges = (torch.arange(T + 1, dtype=torch.int32, device=dev)
+             if edges is None else _tensor(edges, torch.int32, dev))
+    return backfill_head(state, jobs, edges, min(max_nodes, n)), state

@@ -18,6 +18,7 @@ import torch
 from cranesched_tpu.models import solver_time as jst
 from cranesched_tpu.ops.resources import ResourceLayout
 from cranesched_tpu_torch import convert
+from cranesched_tpu_torch.models import gpu_solver
 from cranesched_tpu_torch.models import solver_time as tst
 
 LAY = ResourceLayout()
@@ -208,3 +209,81 @@ def test_dense_rows_and_with_valid():
     tail = b.with_valid(torch.arange(40) >= 16)
     assert tail.class_masks is b.class_masks and tail.req is b.req
     assert int(tail.valid.sum()) == 24 and bool(b.valid.all())
+
+
+def test_solve_backfill_routes_cpu_tensors_to_plain():
+    """On CPU tensors ``solve_backfill`` is ``solve_backfill_plain``: the
+    same placements and post-solve state, in place, and no launch."""
+    args, cols = _problem(5, N=16, J=40, seconds=True)
+    edges = tst.TimeGrid(16, 60.0, horizon=WEEK).edges_tensor("cpu")
+    before = tst.backfill_head.launches
+    outs = []
+    for solve in (tst.solve_backfill, tst.solve_backfill_plain):
+        _, ts = _states(args)
+        p, ts2 = solve(ts, convert.timed_job_batch(*cols, device="cpu"),
+                       edges=edges, max_nodes=3)
+        assert ts2 is ts
+        outs.append((p, ts2))
+    (p, s), (q, t) = outs
+    for what in ("placed", "start_bucket", "nodes", "reason"):
+        assert torch.equal(getattr(p, what), getattr(q, what)), what
+    assert torch.equal(s.time_avail, t.time_avail)
+    assert torch.equal(s.cost, t.cost)
+    assert bool(p.placed.any())
+    assert tst.backfill_head.launches == before
+
+
+# (N, T, R, K, SMs) -> (blocks, slice, words, state): one block per SM,
+# none empty; the owned rows in shared memory while a slice fits
+_HEAD_PLANS = [
+    ((10_000, 64, 3, 2, 132), (132, 76, 1, "shared")),
+    ((12, 16, 3, 3, 132), (12, 1, 1, "shared")),
+    ((133, 64, 3, 2, 132), (67, 2, 1, "shared")),
+    ((10_000, 100, 3, 2, 132), (132, 76, 2, "shared")),
+    ((10_000, 256, 3, 8, 132), (132, 76, 4, "global")),
+    ((42_240, 64, 3, 2, 132), (132, 320, 1, "global")),
+    ((10_000, 64, 3, 1024, 114), (114, 88, 1, "shared")),
+]
+
+
+@pytest.mark.parametrize("shape,want", _HEAD_PLANS,
+                         ids=[f"N{s[0]}-T{s[1]}-K{s[3]}-sm{s[4]}"
+                              for s, _ in _HEAD_PLANS])
+def test_head_launch_plan_picks_state_and_words(shape, want):
+    N, T, R, K, sms = shape
+    plan = tst.head_launch_plan(N, T, R, K, sms)
+    assert (plan.blocks, plan.slice, plan.words, plan.state) == want
+    assert (plan.blocks - 1) * plan.slice < N <= plan.blocks * plan.slice
+    assert plan.smem_bytes == tst.head_smem_bytes(
+        plan.slice, T, R, K, plan.state == "shared")
+    assert plan.smem_bytes <= gpu_solver.SMEM_LIMIT
+    if plan.state == "global":
+        assert tst.head_smem_bytes(plan.slice, T, R, K, True) \
+            > gpu_solver.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("shape", [(0, 64, 3, 2), (10, 0, 3, 2),
+                                   (10, 64, 0, 2), (10, 64, 3, 1025),
+                                   (2_000_000, 64, 3, 2)])
+def test_head_launch_plan_refuses_shapes_outside_it(shape):
+    """No node, bucket or dim, K above greedy_place's bound, and a slice
+    whose masks alone overflow shared memory raise."""
+    with pytest.raises(ValueError):
+        tst.head_launch_plan(*shape, sms=132)
+
+
+def test_head_smem_layout_mirrors_the_source():
+    """The bytes of ``head_layout`` at the benchmark's shape (76 nodes a
+    block, T = 64, R = 3, K = 2), 512 threads: 2 x 8 x 16 top-k keys,
+    2 first starts, 65 counts, 65 edges, 64 ends, 2 offered keys and 2
+    ranks, 76 eligibility bytes, 76 fit words, 76 keys, 76 x 64 x 3 rows
+    of the time map and 76 costs, each part rounded up to 16 bytes."""
+    assert gpu_solver.THREADS == 512
+    assert tst.head_smem_bytes(76, 64, 3, 2, True) == (
+        2048 + 16 + 272 + 272 + 256 + 16 + 16 + 80 + 608 + 608 + 58_368
+        + 304)
+    assert tst.head_smem_bytes(76, 64, 3, 2, False) == (
+        2048 + 16 + 272 + 272 + 256 + 16 + 16 + 80 + 608 + 608)
+    # past 64 buckets: a second fit word per node, and the ends' 65th
+    assert tst.head_smem_bytes(10, 65, 1, 1, False) \
+        - tst.head_smem_bytes(10, 64, 1, 1, False) == 16 + 10 * 8

@@ -144,8 +144,9 @@ def test_main_needs_the_card():
 
 def test_build_cache_key_covers_every_header(tmp_path, monkeypatch):
     """A changed header changes every kernel's library path, so a stale
-    library is never loaded; both sources are registered."""
-    assert set(build.SOURCES) == {"greedy_place", "kattr_variants"}
+    library is never loaded; every source is registered."""
+    assert set(build.SOURCES) == {"greedy_place", "kattr_variants",
+                                  "backfill_head"}
     for src in build.CSRC_DIR.iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)

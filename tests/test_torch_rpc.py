@@ -99,11 +99,12 @@ WALL = ({"TokenReply.token", "CaptureProfileReply.dir",
 # recorder's wall-clock phase ring
 OPAQUE = {"stats.metrics", "stats.flight"}
 # what the port's trace rows carry beyond the JAX package's: finer
-# timings, the scheduler's device and greedy_place's launches, the span
-# tree and the WAL's bytes and records
+# timings, the scheduler's device, greedy_place's and backfill_head's
+# launches, the span tree and the WAL's bytes and records
 PORT_ONLY = {"stats.cycle_trace": ("batch_ms", "priority_ms",
                                    "solve_head_ms", "solve_tail_ms",
-                                   "device", "kernel_launches", "cycle",
+                                   "device", "kernel_launches",
+                                   "head_kernel_launches", "cycle",
                                    "t0", "spans", "wal_bytes",
                                    "wal_records")}
 
@@ -835,7 +836,7 @@ def test_standalone_metrics_http_endpoint():
         srv.shutdown()
 
 
-def _cluster(num_nodes=4, backfill=False):
+def _cluster(num_nodes=4, backfill=False, **config):
     meta = MetaContainer()
     for i in range(num_nodes):
         meta.add_node(
@@ -844,7 +845,7 @@ def _cluster(num_nodes=4, backfill=False):
                                memsw_bytes=32 << 30, is_capacity=True),
             partitions=("default",))
         meta.craned_up(i)
-    sched = JobScheduler(meta, SchedulerConfig(backfill=backfill),
+    sched = JobScheduler(meta, SchedulerConfig(backfill=backfill, **config),
                          device="cpu")
     cluster = SimCluster(sched)
     cluster.wire(sched)
@@ -925,6 +926,45 @@ def test_cycle_trace_row_names_device_and_kernel_launches():
         assert len(sched.schedule_cycle(now=now)) == 1
         row = sched.cycle_trace.snapshot()[-1]
         assert row["device"] == "cpu" and row["kernel_launches"] == 1
+
+
+@pytest.mark.parametrize("backfill,head_max,want", [
+    (True, 1, 1), (True, 1024, 1), (False, 1024, 0)],
+    ids=["split", "unsplit", "immediate"])
+def test_cycle_trace_row_counts_head_kernel_launches(monkeypatch, backfill,
+                                                     head_max, want):
+    """Each trace row carries backfill_head's launches inside that cycle
+    (a delta off the wrapper's count): one on a split or whole backfill
+    cycle, none on an immediate one.  On the CPU the route launches
+    nothing, so a stand-in counts one launch per ``solve_backfill`` call:
+    this checks the row's accounting only.  That the route on the card is
+    one launch is ``tests/test_torch_backfill_card.py::
+    test_backfill_head_counts_launches_on_the_route``, and ``chip_smoke``'s
+    split backfill cycles check it per cycle."""
+    from cranesched_tpu_torch.ctld import scheduler as tsched
+    from cranesched_tpu_torch.models import solver_time
+
+    inner = tsched.solve_backfill
+
+    def counted(*a, **kw):
+        # on CPU tensors the route runs the plain loop, uncounted
+        solver_time.backfill_head.launches += 1
+        return inner(*a, **kw)
+
+    monkeypatch.setattr(tsched, "solve_backfill", counted)
+    meta, sched, cluster = _cluster(backfill=backfill,
+                                    backfill_max_jobs=head_max)
+    solver_time.backfill_head.launches += 3    # launches before the cycle
+    for now in (1.0, 2.0):
+        for _ in range(3):
+            sched.submit(JobSpec(res=ResourceSpec(cpu=1.0, mem_bytes=1 << 30,
+                                                  memsw_bytes=1 << 30),
+                                 sim_runtime=30.0), now=now - 0.5)
+        assert len(sched.schedule_cycle(now=now)) == 3
+        row = sched.cycle_trace.snapshot()[-1]
+        assert row["head_kernel_launches"] == want
+        assert row["solver"] == ("backfill-split" if head_max == 1 else
+                                 "backfill" if backfill else row["solver"])
 
 
 def test_cycle_trace_solve_time_excluded_from_lock_held():
